@@ -1,0 +1,109 @@
+"""Flash attention: a hand-written CUDA kernel for Hopper (its plain
+PyTorch version is in `ref`).
+
+Replaces `repro/kernels/flash_attention.py::flash_attention` (the Pallas
+TPU kernel `_kernel`): q (BH, Sq, hd), k/v (BKV, Sk, hd) with GQA (query
+row b reads k/v row b // G, G = BH / BKV); queries right-aligned against
+the keys (qpos = i + Sk − Sq); key padding, causal and sliding-window
+masks; an optional tanh softcap after the scale; online softmax with fp32
+accumulators; a fully-masked row gives 0. The output is in q's dtype.
+
+What bounds it on an H100: operations, 4·hd flops per allowed (query, key)
+pair and head, except in decoding, where the bytes of k and v do. bf16
+runs on the tensor cores through mma.sync with fp32 accumulation; fp32
+runs exactly on the FMA units, without TF32. Key tiles with no allowed key
+are skipped, so a sliding window costs O(Sq·window)
+(csrc/flash_attention.cu says more).
+
+`flash_attention` runs its plain version, `ref.flash_attention_ref`, for
+CPU tensors only; for CUDA tensors it launches the kernel or raises.
+`launches` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+
+HEAD_DIMS = (32, 64, 128)     # the kernel's head widths
+DTYPES = (torch.float32, torch.bfloat16)
+
+launches = 0                  # kernel launches (not plain-version calls)
+
+
+def _check(q, k, v):
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"q must be (BH, Sq, hd) and k (BKV, Sk, hd), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    BH, _, hd = q.shape
+    BKV, Sk, _ = k.shape
+    if BKV == 0 or BH % BKV != 0:
+        raise ValueError(f"BH={BH} is not a multiple of BKV={BKV}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q must be one of {DTYPES}, got {q.dtype}")
+    for t, name, shape in ((k, "k", (BKV, Sk, hd)), (v, "v", (BKV, Sk, hd))):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype} like q, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, "
+                             f"got {tuple(t.shape)}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _library():
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention").flash_attention_forward
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(q, k, v, out, *, causal, window, softcap, scale) -> int:
+    """Launch the kernel on checked CUDA tensors; returns the CUDA error
+    code (0 = launched)."""
+    BH, Sq, hd = q.shape
+    BKV, Sk, _ = k.shape
+    scale = hd ** -0.5 if scale is None else scale
+    with torch.cuda.device(q.device):
+        return _library()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            BH, BKV, Sq, Sk, hd, int(q.dtype == torch.bfloat16), int(causal),
+            int(window or 0), float(scale), float(softcap or 0.0),
+            torch.cuda.current_stream().cuda_stream)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    scale=None):
+    """q (BH, Sq, hd), k/v (BKV, Sk, hd) with BH % BKV == 0, all float32
+    or all bfloat16, contiguous and on one device. Scale defaults to
+    hd^-0.5. Returns (BH, Sq, hd) in q's dtype."""
+    global launches
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    hd = q.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes hd in {HEAD_DIMS}, got hd={hd}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("the flash_attention kernel has no "
+                                  "backward")
+    out = torch.empty_like(q)
+    err = _launch(q, k, v, out, causal=causal, window=window,
+                  softcap=softcap, scale=scale)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    launches += 1
+    return out

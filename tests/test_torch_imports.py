@@ -99,6 +99,11 @@ print("clean", n)
 """
 
 
+# the kernel modules, named so that the walk below cannot miss one
+KERNEL_MODULES = ("build", "ref", "ops", "tree_conv", "mamba_scan",
+                  "flash_attention")
+
+
 def test_port_imports_neither_jax_nor_reference():
     r = _fresh_python(
         "import sys, importlib, pkgutil\n"
@@ -106,6 +111,10 @@ def test_port_imports_neither_jax_nor_reference():
         "n = 0\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name); n += 1\n"
+        f"kernels = {KERNEL_MODULES!r}\n"
+        "missed = [k for k in kernels\n"
+        "          if 'repro_torch.kernels.' + k not in sys.modules]\n"
+        "assert not missed, missed\n"
         + _LEAK_CHECK)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.split()[-1]) >= len(COPIES)

@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.agent import AgentConfig, AqoraAgent  # noqa: E402
 from repro_torch.core.encoding import WorkloadMeta  # noqa: E402
 from repro_torch.core.nets import TreeCNN  # noqa: E402
-from repro_torch.kernels import tree_conv  # noqa: E402
+from repro_torch.kernels import ref, tree_conv  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -67,17 +67,16 @@ def test_one_launch_per_encoder_call(cuda, B, N, F, H):
     enc = TreeCNN(F, H, torch.Generator().manual_seed(1)).to(cuda)
     feat, left, right, mask = (t.to(cuda) for t in _inputs(B, N, F))
     with torch.inference_mode():
-        before = tree_conv.launches
+        before = tree_conv.tree_cnn_fused_launches
         out = enc(feat, left, right, mask)
-        assert tree_conv.launches == before + 1
+        assert tree_conv.tree_cnn_fused_launches == before + 1
         single = enc(feat[0], left[0], right[0], mask[0])
-        assert tree_conv.launches == before + 2
-        ref = tree_conv.tree_cnn_fused_ref(feat, left, right, mask,
-                                           enc.params())
+        assert tree_conv.tree_cnn_fused_launches == before + 2
+        want = ref.tree_cnn_fused_ref(feat, left, right, mask, enc.params())
     torch.cuda.synchronize()
     assert out.device.type == "cuda"
-    assert float((out - ref).abs().max()) <= 1e-4
-    assert float((single - ref[0]).abs().max()) <= 1e-4
+    assert float((out - want).abs().max()) <= 1e-4
+    assert float((single - want[0]).abs().max()) <= 1e-4
     assert not out[-1].any()
 
 
@@ -90,8 +89,186 @@ def test_act_batch_launches_the_kernel_once(cuda):
     right = np.clip(right, 0, 63)
     amask = np.ones((8, agent.space.d), np.float32)
     keys = np.zeros((8, 2), np.uint32)
-    before = tree_conv.launches
+    before = tree_conv.tree_cnn_fused_launches
     a, logp, _ = agent.act_batch(feat, left, right, mask, amask, keys,
                                  explore=False)
-    assert tree_conv.launches == before + 1
+    assert tree_conv.tree_cnn_fused_launches == before + 1
     assert a.shape == (8,) and np.isfinite(logp).all()
+
+
+# ------------------------------------------------- the kernels.ops kernels
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+
+def _close(out, want, tol):
+    out, want = out.float(), want.float()
+    assert out.shape == want.shape
+    assert torch.isfinite(out).all()
+    bad = (out - want).abs() > tol + tol * want.abs()
+    assert not bad.any(), float((out - want).abs().max())
+
+
+def _attn(B, Sq, Sk, H, K, hd, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dtype) for s in ((B, Sq, H, hd), (B, Sk, K, hd),
+                                 (B, Sk, K, hd))]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal,window,cap", [
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0),
+    (2, 256, 256, 8, 2, 64, True, 0, 0.0),        # GQA 4:1
+    (1, 100, 100, 4, 4, 32, True, 0, 0.0),        # unaligned
+    (2, 1, 300, 4, 2, 128, True, 0, 0.0),         # decode, right-aligned
+    (1, 256, 256, 4, 2, 64, True, 128, 0.0),      # sliding window
+    (1, 128, 128, 4, 4, 128, True, 0, 50.0),      # softcap
+    (1, 64, 192, 4, 4, 64, True, 0, 0.0),         # suffix queries
+    (1, 200, 70, 2, 1, 32, True, 0, 0.0),         # Sq > Sk: masked rows
+    (1, 96, 130, 2, 2, 64, False, 0, 0.0),        # not causal
+    (1, 150, 150, 2, 1, 128, False, 40, 30.0),    # window only, softcap
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_one_launch_per_call(cuda, B, Sq, Sk, H, K, hd,
+                                             causal, window, cap, dtype):
+    q, k, v = (t.to(cuda) for t in _attn(B, Sq, Sk, H, K, hd, dtype))
+    with torch.inference_mode():
+        before = fa.launches
+        out = ops.mha_flash(q, k, v, causal=causal, window=window,
+                            softcap=cap)
+        assert fa.launches == before + 1
+        qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
+        kf = k.transpose(1, 2).reshape(B * K, Sk, hd)
+        vf = v.transpose(1, 2).reshape(B * K, Sk, hd)
+        want = ref.flash_attention_ref(qf, kf, vf, causal=causal,
+                                       window=window, softcap=cap)
+        want = want.reshape(B, H, Sq, hd).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    _close(out, want, 2e-5 if dtype == torch.float32 else 2e-2)
+
+
+def _scan(B, S, di, N, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.standard_normal((B, S, di)),
+        np.abs(rng.standard_normal((B, S, di))) * 0.1,
+        -np.abs(rng.standard_normal((di, N))),
+        rng.standard_normal((B, S, N)), rng.standard_normal((B, S, N)),
+        rng.standard_normal(di))]
+
+
+@pytest.mark.parametrize("B,S,di,N", [(2, 64, 32, 8), (1, 100, 64, 16),
+                                      (2, 256, 96, 16), (3, 33, 130, 4),
+                                      (1, 70, 200, 32)])
+def test_mamba_scan_one_launch_per_call(cuda, B, S, di, N):
+    x, dt, A, Bs, Cs, D = (t.to(cuda) for t in _scan(B, S, di, N))
+    with torch.inference_mode():
+        before = ms.launches
+        out = ops.selective_scan_fused(x, dt, A, Bs, Cs, D)
+        assert ms.launches == before + 1
+        want = ref.mamba_scan_ref(x, dt, A, Bs, Cs)[0] + x * D
+    torch.cuda.synchronize()
+    _close(out, want, 1e-4)
+
+
+def _conv_params(F, H, seed=0):
+    rng = np.random.default_rng(seed)
+    p = {w: torch.from_numpy(rng.standard_normal((F, H)).astype(np.float32)
+                             * 0.1) for w in ("wr", "wl", "wrt")}
+    p["b"] = torch.from_numpy(rng.standard_normal(H).astype(np.float32) * .1)
+    return p
+
+
+@pytest.mark.parametrize("B,N,F,H", [(8, 48, 26, 96), (8, 64, 96, 96),
+                                     (3, 16, 8, 12), (1, 64, 30, 64),
+                                     (5, 33, 27, 40)])
+def test_tree_conv_one_launch_per_call(cuda, B, N, F, H):
+    feat, left, right, mask = (t.to(cuda) for t in _inputs(B, N, F))
+    params = {w: t.to(cuda) for w, t in _conv_params(F, H).items()}
+    with torch.inference_mode():
+        before = tree_conv.tree_conv_launches
+        out = ops.tree_conv_batch(feat, left, right, mask, params)
+        assert tree_conv.tree_conv_launches == before + 1
+        want = ref.tree_conv_batch_ref(feat, left, right, mask,
+                                       params["wr"], params["wl"],
+                                       params["wrt"], params["b"])
+    torch.cuda.synchronize()
+    _close(out, want, 1e-5)
+    assert not out[-1].any()                   # an all-masked tree
+
+
+def test_ops_never_reach_a_plain_version_on_the_card(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    for name in ("flash_attention_ref", "mamba_scan_ref",
+                 "tree_conv_batch_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+    with torch.inference_mode():
+        q, k, v = (t.to(cuda) for t in _attn(1, 64, 64, 4, 2, 64,
+                                               torch.bfloat16))
+        ops.mha_flash(q, k, v)
+        x, dt, A, Bs, Cs, D = (t.to(cuda) for t in _scan(1, 40, 64, 16))
+        ops.selective_scan_fused(x, dt, A, Bs, Cs, D)
+        feat, left, right, mask = (t.to(cuda) for t in _inputs(2, 16, 8))
+        ops.tree_conv_batch(feat, left, right, mask,
+                            {w: t.to(cuda)
+                             for w, t in _conv_params(8, 12).items()})
+    torch.cuda.synchronize()
+
+
+def test_ops_kernels_reject_mixed_devices(cuda):
+    q, k, v = _attn(1, 64, 64, 4, 2, 64, torch.float32)
+    x, dt, A, Bs, Cs, _ = _scan(1, 40, 64, 16)
+    feat, left, right, mask = _inputs(2, 16, 8)
+    p = _conv_params(8, 12)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="is on"):
+            ops.mha_flash(q.to(cuda), k, v.to(cuda))
+        with pytest.raises(ValueError, match="is on"):
+            ms.mamba_scan(x.to(cuda), dt.to(cuda), A, Bs.to(cuda),
+                          Cs.to(cuda))
+        with pytest.raises(ValueError, match="is on"):
+            tree_conv.tree_conv(feat.to(cuda), left.to(cuda),
+                                right.to(cuda), mask.to(cuda), p["wr"],
+                                p["wl"].to(cuda), p["wrt"].to(cuda),
+                                p["b"].to(cuda))
+
+
+def test_ops_kernels_reject_wrong_dtypes_on_card(cuda):
+    q, k, v = (t.to(cuda) for t in _attn(1, 64, 64, 4, 2, 64,
+                                           torch.float32))
+    x, dt, A, Bs, Cs, _ = (t.to(cuda) for t in _scan(1, 40, 64, 16))
+    feat, left, right, mask = (t.to(cuda) for t in _inputs(2, 16, 8))
+    p = {w: t.to(cuda) for w, t in _conv_params(8, 12).items()}
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            ops.mha_flash(q.half(), k.half(), v.half())
+        with pytest.raises(TypeError):
+            ops.mha_flash(q, k.bfloat16(), v)
+        with pytest.raises(TypeError):
+            ms.mamba_scan(x.double(), dt, A, Bs, Cs)
+        with pytest.raises(TypeError):
+            tree_conv.tree_conv(feat, left.long(), right, mask, p["wr"],
+                                p["wl"], p["wrt"], p["b"])
+
+
+def test_ops_kernels_reject_unsupported_widths_on_card(cuda):
+    q, k, v = (t.to(cuda) for t in _attn(1, 64, 64, 4, 2, 48,
+                                           torch.bfloat16))
+    x, dt, A, Bs, Cs, _ = (t.to(cuda) for t in _scan(1, 40, 64, 12))
+    feat, left, right, mask = (t.to(cuda) for t in _inputs(2, 65, 8))
+    p = {w: t.to(cuda) for w, t in _conv_params(8, 12).items()}
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="hd"):
+            ops.mha_flash(q, k, v)
+        with pytest.raises(ValueError, match="N in"):
+            ms.mamba_scan(x, dt, A, Bs, Cs)
+        with pytest.raises(ValueError, match="N <= 64"):
+            tree_conv.tree_conv(feat, left, right, mask, p["wr"], p["wl"],
+                                p["wrt"], p["b"])
+    qg = torch.zeros((4, 64, 32), device=cuda, requires_grad=True)
+    kv = torch.zeros((2, 64, 32), device=cuda)
+    with pytest.raises(NotImplementedError):             # no backward
+        fa.flash_attention(qg, kv, kv)

@@ -53,12 +53,12 @@ def test_plain_version_matches_pallas_kernel(B, N, F, H, tile):
                              jnp.asarray(right), jnp.asarray(mask),
                              jax.tree_util.tree_map(jnp.asarray, params),
                              tile=tile, interpret=True)
-    before = tree_conv.launches
+    before = tree_conv.tree_cnn_fused_launches
     out = tree_conv.tree_cnn_fused(
         torch.from_numpy(feat), torch.from_numpy(left),
         torch.from_numpy(right), torch.from_numpy(mask),
         _torch_params(params))
-    assert tree_conv.launches == before        # CPU tensors launch nothing
+    assert tree_conv.tree_cnn_fused_launches == before        # CPU tensors launch nothing
     assert out.shape == (B, H)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref),
                                atol=1e-4, rtol=1e-4)

@@ -1,0 +1,215 @@
+"""The port's `kernels.ops` path against the JAX package, on the CPU.
+
+On CPU tensors every wrapper takes its kernel's plain version, so these
+cases hold the plain versions, the model-layout wrappers and the oracles
+of `repro_torch.kernels` to the reference's Pallas kernels (interpret
+mode), `repro.kernels.ops` and `repro.kernels.ref`, at the shapes and
+tolerances of tests/test_kernels.py (fp32 attention 2e-5, bf16 2e-2, the
+scan 1e-4, tree conv 1e-5). The inputs are made from a seed with numpy and
+given to both. The CUDA kernels themselves are checked on the card
+(test_torch_kernel_launch.py and chip_smoke.py).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import \
+    flash_attention as jax_flash_attention  # noqa: E402
+from repro.kernels.mamba_scan import mamba_scan as jax_mamba_scan  # noqa: E402
+from repro.kernels.tree_conv import tree_conv as jax_tree_conv  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
+from repro_torch.kernels import ops, ref, tree_conv  # noqa: E402
+
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a, dtype="float32"):
+    """The same numpy array as a jax and a torch array of `dtype` (both
+    round fp32 to bf16 to nearest even)."""
+    return (jnp.asarray(a, getattr(jnp, dtype)),
+            torch.from_numpy(np.ascontiguousarray(a)).to(TORCH_DTYPE[dtype]))
+
+
+def _assert_close(port, want, tol):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------- flash attention
+ATTN_CASES = [                          # tests/test_kernels.py's shapes
+    (4, 4, 128, 128, 64, 0, 0.0),
+    (8, 2, 256, 256, 64, 0, 0.0),       # GQA 4:1
+    (4, 4, 100, 100, 32, 0, 0.0),       # unaligned seq
+    (2, 2, 1, 300, 64, 0, 0.0),         # decode: 1 query vs cache
+    (4, 2, 256, 256, 64, 128, 0.0),     # sliding window
+    (4, 4, 128, 128, 64, 0, 50.0),      # gemma softcap
+    (4, 4, 64, 192, 64, 0, 0.0),        # suffix queries (Sq < Sk)
+]
+
+
+@pytest.mark.parametrize("BH,BKV,Sq,Sk,hd,window,cap", ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas(BH, BKV, Sq, Sk, hd, window,
+                                              cap, dtype):
+    rng = np.random.default_rng(BH * 1000 + Sq + Sk + hd + window)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.standard_normal(s).astype(np.float32), dtype)
+        for s in ((BH, Sq, hd), (BKV, Sk, hd), (BKV, Sk, hd)))
+    want = jax_flash_attention(qj, kj, vj, causal=True, window=window,
+                               softcap=cap, interpret=True)
+    before = fa.launches
+    out = fa.flash_attention(qt, kt, vt, causal=True, window=window,
+                             softcap=cap)
+    assert fa.launches == before               # CPU tensors launch nothing
+    assert out.dtype == qt.dtype and out.shape == (BH, Sq, hd)
+    _assert_close(out, want, 2e-5 if dtype == "float32" else 2e-2)
+
+
+# --------------------------------------------------------------- mamba scan
+def _scan_inputs(B, S, di, N, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, S, di)).astype(np.float32),
+            (np.abs(rng.standard_normal((B, S, di))) * 0.1).astype(np.float32),
+            -np.abs(rng.standard_normal((di, N))).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32)]
+
+
+@pytest.mark.parametrize("B,S,di,N,chunk,bd", [
+    (2, 64, 32, 8, 32, 32),
+    (1, 100, 64, 16, 32, 32),           # unaligned time
+    (2, 256, 96, 16, 128, 32),          # unaligned channels
+    (1, 96, 32, 8, 16, 32),             # the chunk-invariance case ...
+    (1, 96, 32, 8, 96, 16),             # ... at both of its chunkings
+])
+def test_mamba_scan_plain_matches_pallas(B, S, di, N, chunk, bd):
+    """The port has no chunk: its one result matches the Pallas kernel at
+    every chunking the reference tests."""
+    args = _scan_inputs(B, S, di, N, seed=B * 1000 + S + di)
+    want = jax_mamba_scan(*map(jnp.asarray, args), chunk=chunk, block_d=bd,
+                          interpret=True)
+    before = ms.launches
+    out = ms.mamba_scan(*map(torch.from_numpy, args))
+    assert ms.launches == before
+    _assert_close(out, want, 1e-4)
+
+
+# ---------------------------------------------------------------- tree conv
+def _tree_inputs(Bt, N, F, H, seed, out_of_range=False):
+    rng = np.random.default_rng(seed)
+    feat = rng.standard_normal((Bt, N, F)).astype(np.float32)
+    feat[:, 0] = 0.0                                   # null slot
+    lo, hi = (-3, N + 3) if out_of_range else (0, N)
+    left = rng.integers(lo, hi, (Bt, N)).astype(np.int32)
+    right = rng.integers(lo, hi, (Bt, N)).astype(np.int32)
+    mask = (rng.random((Bt, N)) > 0.3).astype(np.float32)
+    mask[:, 0] = 0.0
+    ws = [rng.standard_normal((F, H)).astype(np.float32) * 0.1
+          for _ in range(3)]
+    b = rng.standard_normal(H).astype(np.float32) * 0.1
+    return [feat, left, right, mask, *ws, b]
+
+
+@pytest.mark.parametrize("Bt,N,F,H,oob", [(3, 16, 8, 12, False),
+                                          (2, 64, 27, 96, False),
+                                          (1, 64, 30, 64, False),
+                                          (4, 48, 26, 96, True)])
+def test_tree_conv_plain_matches_pallas(Bt, N, F, H, oob):
+    """`oob`: child indices >= N and < 0, which the Pallas kernel's one-hot
+    reads as zero rows."""
+    args = _tree_inputs(Bt, N, F, H, seed=Bt * 1000 + N + F + H,
+                        out_of_range=oob)
+    want = jax_tree_conv(*map(jnp.asarray, args), interpret=True)
+    before = tree_conv.tree_conv_launches
+    out = tree_conv.tree_conv(*map(torch.from_numpy, args))
+    assert tree_conv.tree_conv_launches == before
+    _assert_close(out, want, 1e-5)
+
+
+# ---------------------------------------------------- model-layout wrappers
+def _ops_case(name):
+    rng = np.random.default_rng(len(name))
+    if name == "mha_flash":
+        B, S, H, K, hd = 2, 64, 8, 2, 32
+        args = [rng.standard_normal(s).astype(np.float32)
+                for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd))]
+        kw = {"causal": True, "window": 24, "softcap": 30.0}
+        return args, {}, kw, 2e-5
+    if name == "selective_scan_fused":
+        args = _scan_inputs(2, 80, 48, 16, seed=5)
+        args.append(rng.standard_normal(48).astype(np.float32))
+        return args, {}, {}, 1e-4
+    args = _tree_inputs(3, 32, 12, 20, seed=6, out_of_range=True)
+    feat, left, right, mask, wr, wl, wrt, b = args
+    return ([feat, left, right, mask],
+            {"wr": wr, "wl": wl, "wrt": wrt, "b": b}, {}, 1e-5)
+
+
+@pytest.mark.parametrize("name", ["mha_flash", "selective_scan_fused",
+                                  "tree_conv_batch"])
+def test_ops_wrapper_matches_reference_ops(name):
+    args, params, kw, tol = _ops_case(name)
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [torch.from_numpy(a) for a in args]
+    if params:
+        jargs.append({k: jnp.asarray(v) for k, v in params.items()})
+        targs.append({k: torch.from_numpy(v) for k, v in params.items()})
+    want = getattr(jops, name)(*jargs, interpret=True, **kw)
+    out = getattr(ops, name)(*targs, **kw)
+    assert out.shape == want.shape
+    assert out.dtype == TORCH_DTYPE[str(want.dtype)]
+    _assert_close(out, want, tol)
+
+
+# ------------------------------------------------------------------ oracles
+@pytest.mark.parametrize("Sq,Sk,causal,window,cap", [
+    (96, 96, True, 0, 0.0), (64, 160, True, 32, 0.0),
+    (80, 48, True, 0, 20.0),            # Sq > Sk: fully-masked rows -> 0
+    (50, 70, False, 16, 0.0)])
+def test_flash_attention_oracle_matches_reference(Sq, Sk, causal, window,
+                                                  cap):
+    rng = np.random.default_rng(Sq + Sk)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.standard_normal(s).astype(np.float32))
+        for s in ((3, Sq, 32), (3, Sk, 32), (3, Sk, 32)))
+    want = jref.flash_attention_ref(qj, kj, vj, causal=causal, window=window,
+                                    softcap=cap)
+    out = ref.flash_attention_ref(qt, kt, vt, causal=causal, window=window,
+                                  softcap=cap)
+    _assert_close(out, want, 2e-5)
+    if Sq > Sk:
+        assert not out[:, :Sq - Sk].any()
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_oracle_matches_reference(with_h0):
+    args = _scan_inputs(2, 40, 24, 8, seed=7)
+    h0 = (np.random.default_rng(8).standard_normal((2, 24, 8))
+          .astype(np.float32) if with_h0 else None)
+    y_want, h_want = jref.mamba_scan_ref(
+        *map(jnp.asarray, args), None if h0 is None else jnp.asarray(h0))
+    y, h = ref.mamba_scan_ref(*map(torch.from_numpy, args),
+                              None if h0 is None else torch.from_numpy(h0))
+    _assert_close(y, y_want, 1e-4)
+    _assert_close(h, h_want, 1e-4)
+
+
+@pytest.mark.parametrize("oob", [False, True])
+def test_tree_conv_oracle_matches_reference(oob):
+    """`oob`: the oracle's `h[idx]` clamps an index past the end and counts
+    a negative one from the end, as jnp indexing does."""
+    feat, left, right, mask, wr, wl, wrt, b = _tree_inputs(
+        1, 24, 10, 16, seed=9, out_of_range=oob)
+    if oob:
+        left[0, :4] = [-1, -24, -27, 30]               # wrap, wrap, clamp
+    args = [feat[0], left[0], right[0], mask[0], wr, wl, wrt, b]
+    want = jref.tree_conv_ref(*map(jnp.asarray, args))
+    out = ref.tree_conv_ref(*map(torch.from_numpy, args))
+    _assert_close(out, want, 1e-5)
