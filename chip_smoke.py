@@ -20,7 +20,8 @@ Phases, each printing one JSON line:
            must have launched the encoder kernel once;
   ops      the `kernels.ops` path at full model widths from the reference's
            configs (src/repro/configs): `mha_flash` at qwen3-8b prefill,
-           decode and fp32 and at gemma2-27b's sliding-window layer,
+           decode, a 4-query suffix and fp32 and at gemma2-27b's
+           sliding-window layer in prefill and decode,
            `selective_scan_fused` at falcon-mamba-7b, `tree_conv_batch`
            at the AQORA encoder's two layer shapes on step-18 weights.
            Each call must launch its kernel exactly once and agree with
@@ -30,8 +31,8 @@ Phases, each printing one JSON line:
            every case is checked before any fails. The line gives each
            case's error and the share of its limit it takes, its kernel's
            time, the plain version's, the card's bound and, where one
-           SDPA call computes the same function (qwen3-8b prefill, decode
-           and fp32), that call's time.
+           SDPA call computes the same function (every qwen3-8b case),
+           that call's time.
 
 With `--profile`, one more card serve runs under `torch.profiler`: its
 line gives the device's busy time by kernel and its idle share of the
@@ -385,22 +386,30 @@ def phase_profile(db, wl, meta, params):
 
 # -------------------------------------------------------------- ops phase
 # (case, B, Sq, Sk, H, K, hd, causal, window, softcap, dtype, atol, rtol,
-#  is_causal of the one SDPA call that computes the same function, or None)
+#  the one SDPA call that computes the same function: "is_causal" (top-left
+#  causal, the same when Sq = Sk), "full" (no mask: one right-aligned query
+#  sees every key), "mask" (an explicit boolean right-aligned causal
+#  attn_mask), or None)
 # A case holds |kernel - plain| <= atol + rtol * |plain| everywhere. In
 # bf16, rtol covers one rounding of the output (at most 2^-7 |x|) and atol
 # the kernel's P rounded to bf16 for the P.V product, which shows in the
-# rows with few keys (the first rows of prefill and gemma2); decode's rows
-# all see 4096 keys. Each atol is at least 1.8 times what the sound kernel
-# needs (PERF.md), and a kernel that drops one 64-key tile fails at decode.
+# rows with few keys (the first rows of prefill and gemma2); the decode
+# cases' rows all see 4093 to 4096 keys. Each atol is at least 1.8 times
+# what the sound kernel needs (PERF.md); a kernel that drops one 64-key
+# tile, or one split's partial in the decode merge, fails at decode.
 ATTENTION_CASES = (
     ("qwen3-8b/prefill", 1, 4096, 4096, 32, 8, 128, True, 0, 0.0,
-     torch.bfloat16, 4e-3, 1e-2, True),
+     torch.bfloat16, 4e-3, 1e-2, "is_causal"),
     ("qwen3-8b/decode", 8, 1, 4096, 32, 8, 128, True, 0, 0.0,
-     torch.bfloat16, 1e-3, 1e-2, False),    # Sq = 1 sees every key
+     torch.bfloat16, 1e-3, 1e-2, "full"),
     ("gemma2-27b/local", 1, 8192, 8192, 32, 16, 128, True, 4096, 50.0,
      torch.bfloat16, 4e-3, 1e-2, None),     # SDPA has no softcap
     ("qwen3-8b/fp32", 1, 1024, 1024, 32, 8, 128, True, 0, 0.0,
-     torch.float32, 2e-5, 2e-5, True),
+     torch.float32, 2e-5, 2e-5, "is_causal"),
+    ("gemma2-27b/decode-local", 8, 1, 8192, 32, 16, 128, True, 4096, 50.0,
+     torch.bfloat16, 1e-3, 1e-2, None),     # SDPA has no softcap
+    ("qwen3-8b/suffix4", 8, 4, 4096, 32, 8, 128, True, 0, 0.0,
+     torch.bfloat16, 1e-3, 1e-2, "mask"),   # chunked decode, verification
 )
 PLAIN_HEADS = 8            # plain attention in slices of 8 heads (memory)
 
@@ -440,6 +449,15 @@ def allowed_pairs(Sq, Sk, causal, window) -> int:
     hi = np.minimum(Sk - 1, qpos) if causal else np.full(Sq, Sk - 1)
     lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(Sq)
     return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def needed_keys(Sq, Sk, causal, window) -> int:
+    """Keys of one k/v head that some query row may attend to: the bytes
+    of k and v the call must read."""
+    off = Sk - Sq
+    hi = min(Sk - 1, Sq - 1 + off) if causal else Sk - 1
+    lo = max(0, off - window + 1) if window > 0 else 0
+    return max(0, hi - lo + 1)
 
 
 def bound(n_bytes, flops, peak):
@@ -482,7 +500,7 @@ def ops_inputs(ckpt_tree, db, wl, meta):
     for (case, B, Sq, Sk, H, K, hd, causal, window, cap, dtype, atol, rtol,
          sdpa) in ATTENTION_CASES:
         attn.append({"case": case, "dtype": dtype, "atol": atol,
-                     "rtol": rtol, "sdpa_is_causal": sdpa,
+                     "rtol": rtol, "sdpa": sdpa,
                      "args": (randn(B, Sq, H, hd, dtype=dtype),
                               randn(B, Sk, K, hd, dtype=dtype),
                               randn(B, Sk, K, hd, dtype=dtype)),
@@ -568,27 +586,42 @@ def attention_row(a):
                     launches=1, reps=3, warmup=1)
     Sk = kf.shape[1]
     pairs = allowed_pairs(Sq, Sk, a["kw"]["causal"], a["kw"]["window"])
-    n_bytes = (2 * qf.numel() + kf.numel() + vf.numel()) * qf.element_size()
+    keys = needed_keys(Sq, Sk, a["kw"]["causal"], a["kw"]["window"])
+    n_bytes = (2 * qf.numel() + 2 * kf.shape[0] * keys * hd) \
+        * qf.element_size()
+    flops = 4 * pairs * hd * B * H
     peak = BF16_FLOPS if a["dtype"] == torch.bfloat16 else FP32_FLOPS
     row = {"case": a["case"], "entry": "mha_flash",
-           "kernel": "flash_attention", "q": list(a["args"][0].shape),
-           "kv": list(a["args"][1].shape), **a["kw"],
-           "dtype": str(a["dtype"]), "allowed_pairs_per_head": pairs,
-           "ms": ms_kernel, "plain_ms": plain,
-           **bound(n_bytes, 4 * pairs * hd * B * H, peak),
+           "kernel": "flash_attention",
+           "path": fa.kernel_path(B * H, kf.shape[0], Sq, Sk, hd, qf.dtype),
+           "q": list(a["args"][0].shape), "kv": list(a["args"][1].shape),
+           **a["kw"], "dtype": str(a["dtype"]),
+           "allowed_pairs_per_head": pairs, "ms": ms_kernel,
+           "plain_ms": plain, **bound(n_bytes, flops, peak),
+           "tflop_per_s": flops / ms_kernel / 1e9,
+           "tb_per_s": n_bytes / ms_kernel / 1e9,
            "library_ms": None, "library_note": "none: SDPA has no softcap"}
-    causal = a["sdpa_is_causal"]
-    if causal is not None:
+    row["kernel_over_bound"] = ms_kernel / row["bound_ms"]
+    how = a["sdpa"]
+    if how is not None:
         q4, k4, v4 = (t.view(B, -1, t.shape[1], hd) for t in (qf, kf, vf))
+        kw = {"is_causal": how == "is_causal"}
+        if how == "mask":                     # right-aligned causal
+            qpos = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
+            kw = {"attn_mask": torch.arange(Sk, device="cuda")[None] <= qpos}
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=causal, enable_gqa=True)
+                q4, k4, v4, enable_gqa=True, **kw)
         row["library_ms"] = cuda_ms(sdpa, launches=5, warmup=3)
+        row["kernel_over_library"] = ms_kernel / row["library_ms"]
         row["library_max_abs_diff"] = float(
             (sdpa().reshape(B * H, Sq, hd).float() - out.float()).abs().max())
-        row["library_note"] = ("F.scaled_dot_product_attention(is_causal="
-                               f"{causal}, enable_gqa=True)")
+        row["library_note"] = ("F.scaled_dot_product_attention("
+                               + ("attn_mask=<right-aligned causal>"
+                                  if how == "mask" else
+                                  f"is_causal={how == 'is_causal'}")
+                               + ", enable_gqa=True)")
     return row
 
 

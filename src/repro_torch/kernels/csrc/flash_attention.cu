@@ -1,5 +1,5 @@
-// Flash attention forward for Hopper (sm_90a): bf16 on the tensor cores
-// (mma.sync), fp32 exactly on the FMA units.
+// Flash attention forward for Hopper (sm_90a): bf16 on the tensor cores,
+// fp32 exactly on the FMA units.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
 // flash_attention (_kernel). q (BH, Sq, hd), k/v (BKV, Sk, hd); query row
@@ -10,37 +10,60 @@
 // The softmax is taken online with fp32 running max m, sum l and output
 // accumulator; a key tile with no allowed key is never visited, so a
 // sliding window costs O(Sq * window); a row with no allowed key gives 0.
-// The output is in q's dtype.
+// The output is in q's dtype. The caller picks one of three kernels
+// (flash_attention.py::kernel_path) and launches it once per call.
 //
-// Bound on an H100: operations. At qwen3-8b's prefill (Sq = Sk = 4096, 32
-// heads, hd 128, causal) a call does 4 * hd flops for each of the 268M
-// allowed (query, key) pairs of each head, 137 GFLOP, 0.14 ms at the bf16
-// tensor-core peak, against 84 MB moved, 0.025 ms at 3.35 TB/s. A decode
-// step (Sq = 1) is bound by the bytes of k and v instead.
+// Bound on an H100. Prefill is bound by operations: at qwen3-8b (Sq = Sk =
+// 4096, 32 heads, hd 128, causal) a call does 4 * hd flops for each of the
+// 268M allowed (query, key) pairs of each head, 137 GFLOP, 0.14 ms at the
+// bf16 tensor-core peak, against 84 MB moved. Decoding (Sq * G <= 16 rows
+// per k/v head) is bound by the bytes of k and v: 134 MB at qwen3-8b's
+// B = 8, Sk = 4096, 0.040 ms at 3.35 TB/s.
 //
-// Design, bf16 (flash_bf16_kernel): a block of four warps owns 64 query
-// rows of one head, 16 rows a warp, and walks the allowed key tiles of 64
-// keys. q is loaded once into registers as mma.sync A fragments; k and v
-// tiles are double-buffered in shared memory with cp.async, the next tile
-// in flight while this one is used, rows padded by 16 bytes so the
-// ldmatrix reads hit distinct banks. S = Q K^T goes through
-// mma.sync.m16n8k16 (bf16 in, fp32 out), the masked online softmax runs in
-// registers (row max and sum over the four lanes of a quad), and P, rounded
-// to bf16, is reused from the S accumulators as the A operand of O += P V,
-// with v read through ldmatrix.trans. wgmma and TMA are later work.
+// bf16 prefill (flash_wgmma_kernel), the design of FlashAttention-3: a
+// block owns 128 query rows of one head, 64 rows for each of two consumer
+// warpgroups; a producer warp keeps TMA loads of the 128-key k and v tiles
+// in flight in a ring of kWStages stages (mbarriers for full and empty),
+// through 3-D tensor maps (hd, S, rows) so that a tile past Sk reads zeros
+// of its own head. S = Q K^T is wgmma with both operands in shared memory; the
+// online softmax runs in registers in log2 units (exp2); P, rounded to
+// bf16, stays in registers as the A operand of O += P V (wgmma, V read
+// MN-major). The softmax of tile j overlaps the P V product of tile j - 1
+// on the tensor cores; the two warpgroups' products interleave there
+// unforced (taking turns through named barriers, FlashAttention-3's
+// ping-pong, measured no faster). setmaxnreg moves registers from the
+// producer to the consumers. The swizzle is 128 B for hd 64 and 128 (two 64-column chunks
+// at 128) and 64 B for hd 32, the same in the tensor maps and in the wgmma
+// descriptors.
 //
-// Design, fp32 (flash_f32_kernel): a block of 256 threads owns 64 query
-// rows and walks key tiles of 32; q, k, v and P tiles sit in shared memory
-// with odd row strides, each thread holds a 4 x 2 tile of S and a 4 x hd/16
-// tile of O, and every product is an fp32 FMA: no tensor cores, no TF32.
+// bf16 decode (flash_decode_kernel): the Sq * G query rows that share one
+// k/v head are packed into one 16-row mma.sync tile, so k and v are read
+// from device memory once per call, not G times. The allowed key range of
+// each (batch, k/v head) is split over the 8 blocks of a thread-block
+// cluster; each block streams its keys through a three-stage ring of
+// cp.async copies, its four warps taking 16 keys of each 64-key stage. The
+// warps' (m, l, O) partials merge in shared memory, and the blocks'
+// through distributed shared memory by the log-sum-exp rule, each block
+// finishing hd / 8 columns: one launch, no scratch in device memory.
+//
+// fp32 (flash_f32_kernel): a block of 256 threads owns 64 query rows and
+// walks key tiles of 32; q, k, v and P tiles sit in shared memory with odd
+// row strides, each thread holds a 4 x 2 tile of S and a 4 x hd/16 tile of
+// O, and every product is an fp32 FMA: no tensor cores, no TF32.
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr float kNeg = -1e30f;                   // a masked score
+constexpr float kNeg = -1e30f;                   // a masked score (fp32)
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -51,6 +74,8 @@ struct Params {
   int Sq, Sk, G;
   int causal, window;
   float scale, softcap;
+  float scale_log2;                              // scale * log2 e
+  float scale_over_cap, cap_log2;                // scale / cap, cap * log2 e
 };
 
 __device__ __forceinline__ bool allowed(const Params& p, int kpos, int qpos) {
@@ -82,7 +107,7 @@ __device__ __forceinline__ bool tile_full(const Params& p, int q0, int q1,
          (p.window <= 0 || k0 > q1 - 1 + off - p.window);
 }
 
-// Masked score, online-softmax weight: 0 for a masked score.
+// fp32 path: masked score, online-softmax weight: 0 for a masked score.
 __device__ __forceinline__ float weight(float s, float m) {
   return s == kNeg ? 0.f : expf(s - m);
 }
@@ -92,12 +117,506 @@ __device__ __forceinline__ float cap(const Params& p, float s) {
   return p.softcap > 0.f ? p.softcap * tanhf(s / p.softcap) : s;
 }
 
-// ---------------------------------------------------------------- bf16 path
+__device__ __forceinline__ float tanh_approx(float x) {  // rel. err 2^-11
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// bf16 paths: the score in log2 units, log2 e * cap(scale * s). The
+// kernels take CAP (softcap > 0) as a template argument, so that the
+// softmax's element loops hold no branch. The tanh is the hardware's
+// approximation: its relative error keeps a score's error far below the
+// bf16 rounding of P at the scores attention sees (|scale * s| << cap),
+// and gemma2-27b's cases need the same atol with it as with tanhf
+// (PERF.md, PR 13).
+template <bool CAP>
+__device__ __forceinline__ float score2(const Params& p, float s) {
+  if constexpr (CAP) return p.cap_log2 * tanh_approx(s * p.scale_over_cap);
+  return s * p.scale_log2;
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Folds a new tile's row maximum mx (quad-reduced) into the running max m;
+// returns the factor that rescales the earlier sums and sets mu, the max
+// the new weights are taken against (0 while a row has seen no allowed key,
+// so that exp2(-inf - mu) = 0 and no inf - inf arises).
+__device__ __forceinline__ float fold_max(float& m, float mx, float& mu) {
+  mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+  mu = mx == -INFINITY ? 0.f : mx;
+  const float alpha = ex2(m - mu);
+  m = mx;
+  return alpha;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte asynchronous copy; zero-fills the destination when !pred.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Keeps the compiler from moving a register's reads or writes across the
+// asynchronous wgmma that reads or writes it.
+__device__ __forceinline__ void keep(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+__device__ __forceinline__ void keep(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+
+// ------------------------------------------------- mbarriers, TMA, wgmma
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 3-D tensor map at (c0, c1, c2) into shared memory; the
+// bytes complete on `bar`. Elements outside the tensor read as zeros.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets, swizzle (1 = 128 B, 2 = 64 B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t swz) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | swz << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The wgmma forms this kernel issues (bf16 in, fp32 accumulate).
+// d (64 x 128, fp32) += a (64 x 16, smem) * b (16 x 128, smem, K-major).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32, fp32) += a (64 x 16, registers) * b (16 x 32, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64, fp32) += a (64 x 16, registers) * b (16 x 64, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, fp32) += a (64 x 16, registers) * b (16 x 128, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// ----------------------------------------------------- bf16 prefill, wgmma
+constexpr int kWQ = 128;                         // query rows per block
+constexpr int kWK = 128;                         // keys per tile
+constexpr int kWStages = 2;                      // k/v ring depth
+constexpr int kWThreads = 384;                   // 2 consumer + 1 producer WG
+constexpr int kConsumers = 256;
+
+// Shared-memory layout of one 128-row tile (q, k or v): hd split into
+// chunks of CW columns, each chunk 128 rows of PITCH bytes, swizzled.
+template <int HD>
+struct WLayout {
+  static constexpr int CW = HD < 64 ? HD : 64;
+  static constexpr int NCH = HD / CW;
+  static constexpr int PITCH = CW * 2;
+  static constexpr int CHUNK = 128 * PITCH;
+  static constexpr int TILE = NCH * CHUNK;
+  static constexpr uint64_t SWZ = CW == 64 ? 1 : 2;   // 128 B or 64 B
+  static constexpr int SBO = 8 * PITCH;               // next 8 rows
+  // q, the k and v stages, mbarriers, 1024 B to align the base
+  static constexpr int SMEM = (1 + 2 * kWStages) * TILE + 256 + 1024;
+};
+
+// s (64 x 128) = this warpgroup's 64 q rows times the 128 k rows of a tile.
+template <int HD>
+__device__ __forceinline__ void qk_issue(float (&s)[64], uint32_t q,
+                                         uint32_t k) {
+  using L = WLayout<HD>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t at = (kk * 16 / L::CW) * L::CHUNK + (kk * 16 % L::CW) * 2;
+    wgmma_ss_n128(s, gmma_desc(q + at, 16, L::SBO, L::SWZ),
+                  gmma_desc(k + at, 16, L::SBO, L::SWZ), kk > 0);
+  }
+}
+
+// o (64 x HD) += P (64 x 128 bf16, A fragments in registers) times the 128
+// v rows of a tile, read MN-major: 16 keys per step, the hd chunks LBO
+// apart.
+template <int HD>
+__device__ __forceinline__ void pv_issue(float (&o)[HD / 2],
+                                         const uint32_t (&pf)[32],
+                                         uint32_t v) {
+  using L = WLayout<HD>;
+#pragma unroll
+  for (int kk = 0; kk < kWK / 16; ++kk) {
+    const uint64_t d =
+        gmma_desc(v + kk * 16 * L::PITCH, L::CHUNK, L::SBO, L::SWZ);
+    if constexpr (HD == 128) wgmma_rs_n128(o, pf + 4 * kk, d);
+    if constexpr (HD == 64) wgmma_rs_n64(o, pf + 4 * kk, d);
+    if constexpr (HD == 32) wgmma_rs_n32(o, pf + 4 * kk, d);
+  }
+}
+
+// Scales and masks this thread's part of a 64 x 128 score tile in place
+// and turns it into exp2 weights against the new running max; folds the
+// tile into m and l and returns each row's rescale factor in alpha. MASK:
+// the tile is not wholly allowed, so each element is tested.
+// Accumulator layout: s[4j + 2i + c] is row g + 8i, column 8j + 2t + c.
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[64],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0,
+                                             const int (&qpos)[2], int t) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = score2<CAP>(p, s[4 * j + e]);
+      if (MASK && !allowed(p, k0 + 8 * j + 2 * t + (e & 1), qpos[e >> 1]))
+        x = -INFINITY;
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float mu[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    alpha[i] = fold_max(m[i], mx[i], mu[i]);
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = ex2(s[4 * j + e] - mu[e >> 1]);
+      l[e >> 1] += s[4 * j + e];
+    }
+}
+
+template <bool CAP>
+__device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[64],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0,
+                                             const int (&qpos)[2], bool full,
+                                             int t) {
+  if (full)
+    softmax_tile<CAP, false>(p, s, m, l, alpha, k0, qpos, t);
+  else
+    softmax_tile<CAP, true>(p, s, m, l, alpha, k0, qpos, t);
+}
+
+// P as wgmma A fragments: 16 keys per step, the layout of mma.sync's A.
+__device__ __forceinline__ void to_fragments(const float (&s)[64],
+                                             uint32_t (&pf)[32]) {
+#pragma unroll
+  for (int x = 0; x < 32; ++x) pf[x] = pack_bf16(s[2 * x], s[2 * x + 1]);
+}
+
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(kWThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const Params p) {
+  using L = WLayout<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  uint8_t* sQ = base;
+  uint8_t* sK = sQ + L::TILE;                    // kWStages tiles
+  uint8_t* sV = sK + kWStages * L::TILE;         // kWStages tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kWStages * L::TILE);
+  uint64_t* full_q = bars;
+  uint64_t* full_k = bars + 1;
+  uint64_t* full_v = full_k + kWStages;
+  uint64_t* empty_k = full_v + kWStages;
+  uint64_t* empty_v = empty_k + kWStages;
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWQ;   // longest rows first
+  int kt_lo, kt_hi;
+  key_tiles(p, q0, min(q0 + kWQ, p.Sq), kWK, kt_lo, kt_hi);
+  const int ntiles = kt_hi - kt_lo;              // walked from kt_hi - 1 down
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty_k + s, kConsumers);
+      mbar_init(empty_v + s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ------------------------------------------------ producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == kConsumers && ntiles > 0) {
+      const int kv = bh / p.G;
+      mbar_expect_tx(full_q, L::TILE);
+      for (int c = 0; c < L::NCH; ++c)
+        tma_load3(sQ + c * L::CHUNK, &tq, full_q, c * L::CW, q0, bh);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kWStages, parity = ((i / kWStages) & 1) ^ 1;
+        const int k0 = (kt_hi - 1 - i) * kWK;
+        mbar_wait(empty_k + s, parity);
+        mbar_expect_tx(full_k + s, L::TILE);
+        for (int c = 0; c < L::NCH; ++c)
+          tma_load3(sK + s * L::TILE + c * L::CHUNK, &tk, full_k + s,
+                    c * L::CW, k0, kv);
+        mbar_wait(empty_v + s, parity);
+        mbar_expect_tx(full_v + s, L::TILE);
+        for (int c = 0; c < L::NCH; ++c)
+          tma_load3(sV + s * L::TILE + c * L::CHUNK, &tv, full_v + s,
+                    c * L::CW, k0, kv);
+      }
+    }
+  } else {
+    // ---------------------------------------------- consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = tid / 128, ct = tid % 128;
+    const int lane = ct % 32, g = lane >> 2, t = lane & 3;
+    const int rb = q0 + wg * 64;                 // this warpgroup's rows
+    const int rb1 = min(rb + 64, p.Sq);
+    const int r0 = rb + (ct / 32) * 16 + g;      // rows r0 and r0 + 8
+    const int off = p.Sk - p.Sq;
+    const int qpos[2] = {r0 + off, r0 + 8 + off};
+
+    float o[HD / 2];
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) o[x] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+
+    if (ntiles > 0) {
+      const uint32_t q_at = smem_addr(sQ) + wg * 64 * L::PITCH;
+      const uint32_t k_at = smem_addr(sK), v_at = smem_addr(sV);
+      float s[64];
+      uint32_t pf[32];
+      mbar_wait(full_q, 0);
+
+      // tile 0: S, softmax, P
+      int k0 = (kt_hi - 1) * kWK;
+      mbar_wait(full_k, 0);
+      wg_fence();
+      qk_issue<HD>(s, q_at, k_at);
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int x = 0; x < 64; ++x) keep(s[x]);
+      mbar_arrive(empty_k);
+      softmax_tile<CAP>(p, s, m, l, alpha, k0, qpos,
+                        tile_full(p, rb, rb1, k0, k0 + kWK), t);
+      to_fragments(s, pf);
+
+      // tile i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} in flight together;
+      // the softmax of S_i runs while P V is on the tensor cores
+      for (int i = 1; i < ntiles; ++i) {
+        const int st = i % kWStages, ps = (i - 1) % kWStages;
+        k0 = (kt_hi - 1 - i) * kWK;
+        mbar_wait(full_k + st, (i / kWStages) & 1);
+        mbar_wait(full_v + ps, ((i - 1) / kWStages) & 1);
+        wg_fence();
+        qk_issue<HD>(s, q_at, k_at + st * L::TILE);
+        wg_commit();
+        pv_issue<HD>(o, pf, v_at + ps * L::TILE);
+        wg_commit();
+        wg_wait<1>();                            // S_i is in
+#pragma unroll
+        for (int x = 0; x < 64; ++x) keep(s[x]);
+        mbar_arrive(empty_k + st);
+        softmax_tile<CAP>(p, s, m, l, alpha, k0, qpos,
+                          tile_full(p, rb, rb1, k0, k0 + kWK), t);
+        wg_wait<0>();                            // P_{i-1} V_{i-1} is in
+#pragma unroll
+        for (int x = 0; x < HD / 2; ++x) keep(o[x]);
+#pragma unroll
+        for (int x = 0; x < 32; ++x) keep(pf[x]);
+        mbar_arrive(empty_v + ps);
+#pragma unroll
+        for (int x = 0; x < HD / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+        to_fragments(s, pf);
+      }
+      const int last = (ntiles - 1) % kWStages;
+      mbar_wait(full_v + last, ((ntiles - 1) / kWStages) & 1);
+      wg_fence();
+      pv_issue<HD>(o, pf, v_at + last * L::TILE);
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int x = 0; x < HD / 2; ++x) keep(o[x]);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) keep(pf[x]);
+      mbar_arrive(empty_v + last);
+    }
+
+    auto* O = static_cast<__nv_bfloat16*>(p.o) +
+              static_cast<size_t>(bh) * p.Sq * HD;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(kFull, l[i], 1);
+      l[i] += __shfl_xor_sync(kFull, l[i], 2);
+      const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      const int r = r0 + 8 * i;
+      if (r < p.Sq) {
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<uint32_t*>(O + static_cast<size_t>(r) * HD +
+                                       8 * j + 2 * t) =
+              pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+      }
+    }
+  }
+}
+
+// ------------------------------------------- bf16 decode, split keys
+constexpr int kDR = 16;                          // packed query rows
+constexpr int kDK = 64;                          // keys per stage
+constexpr int kDStages = 3;
+constexpr int kSplit = 8;                        // blocks per cluster
+constexpr int kDWarps = 4;
+
+template <int HD>
+struct DLayout {
+  static constexpr int LD = HD + 8;              // padded row, bf16
+  static constexpr int QBYTES = kDR * LD * 2;
+  static constexpr int STAGE = 2 * kDK * LD * 2; // k then v
+  static constexpr int SMEM = QBYTES + kDStages * STAGE;
+  // after the key loop the ring holds the warps' (m, l, O), then the
+  // block's, which the other blocks of the cluster read
+  static constexpr int WPART = kDWarps * kDR * (HD + 2) * 4;
+  static constexpr int BPART = kDR * (HD + 2) * 4;
+  static_assert(WPART + BPART <= kDStages * STAGE, "ring too small");
+};
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
@@ -136,128 +655,123 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-constexpr int kBQ = 64;                          // query rows per block
-constexpr int kBK = 64;                          // keys per tile (bf16)
-constexpr int kWarps = 4;
-
-// Rows [row0, row0 + ROWS) of a (nrows, HD) bf16 matrix into shared memory
-// with row stride LD; rows past nrows are zero-filled.
-template <int HD, int LD, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
-                                          const __nv_bfloat16* g, int row0,
-                                          int nrows, int tid) {
-  constexpr int kChunks = HD / 8;                // 16-byte chunks per row
-  for (int c = tid; c < ROWS * kChunks; c += kWarps * 32) {
+// Keys [k0, k0 + kDK) of k and v into one ring stage, rows past Sk zeroed.
+template <int HD>
+__device__ __forceinline__ void load_stage(__nv_bfloat16* s,
+                                           const __nv_bfloat16* K,
+                                           const __nv_bfloat16* V, int k0,
+                                           int Sk, int tid) {
+  constexpr int LD = DLayout<HD>::LD, kChunks = HD / 8;
+  for (int c = tid; c < kDK * kChunks; c += kDWarps * 32) {
     const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool ok = row0 + r < nrows;
-    cp_async16(s + r * LD + col,
-               g + static_cast<size_t>(ok ? row0 + r : 0) * HD + col, ok);
+    const bool ok = k0 + r < Sk;
+    const size_t at = static_cast<size_t>(ok ? k0 + r : 0) * HD + col;
+    cp_async16(s + r * LD + col, K + at, ok);
+    cp_async16(s + (kDK + r) * LD + col, V + at, ok);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kWarps * 32) flash_bf16_kernel(Params p) {
-  constexpr int LD = HD + 8;                     // padded row, bf16 elements
-  constexpr int KD = HD / 16;                    // k16 steps over hd
-  constexpr int NS = kBK / 8;                    // n8 tiles of S
-  constexpr int NO = HD / 8;                     // n8 tiles of O
+template <int HD, bool CAP>
+__global__ void __cluster_dims__(kSplit, 1, 1)
+    __launch_bounds__(kDWarps * 32) flash_decode_kernel(const Params p) {
+  using L = DLayout<HD>;
+  constexpr int LD = L::LD, KD = HD / 16, NO = HD / 8;
   extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* sK = sQ + kBQ * LD;             // 2 stages
-  __nv_bfloat16* sV = sK + 2 * kBK * LD;         // 2 stages
-
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest rows first
-  const int q1 = min(q0 + kBQ, p.Sq);
-  const auto* Q = static_cast<const __nv_bfloat16*>(p.q) +
-                  static_cast<size_t>(bh) * p.Sq * HD;
-  const auto* K = static_cast<const __nv_bfloat16*>(p.k) +
-                  static_cast<size_t>(bh / p.G) * p.Sk * HD;
-  const auto* V = static_cast<const __nv_bfloat16*>(p.v) +
-                  static_cast<size_t>(bh / p.G) * p.Sk * HD;
-  auto* O = static_cast<__nv_bfloat16*>(p.o) +
-            static_cast<size_t>(bh) * p.Sq * HD;
+  auto* sQ = reinterpret_cast<__nv_bfloat16*>(smem_u4);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem_u4) + L::QBYTES;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.block_rank());
+  const int kv = blockIdx.y;
+  const int R = p.Sq * p.G;                      // live packed rows
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int off = p.Sk - p.Sq;
-  const int r0 = q0 + warp * 16 + g;             // rows r0 and r0 + 8
-  const int qpos[2] = {r0 + off, r0 + 8 + off};
+  const int g = lane >> 2, t = lane & 3;
+  // packed row r is query row kv * R + r of the flat (BH * Sq, hd) q:
+  // head kv * G + r / Sq at position r % Sq
+  const auto* Q = static_cast<const __nv_bfloat16*>(p.q) +
+                  static_cast<size_t>(kv) * R * HD;
+  const auto* K = static_cast<const __nv_bfloat16*>(p.k) +
+                  static_cast<size_t>(kv) * p.Sk * HD;
+  const auto* V = static_cast<const __nv_bfloat16*>(p.v) +
+                  static_cast<size_t>(kv) * p.Sk * HD;
 
-  int kt_lo, kt_hi;
-  key_tiles(p, q0, q1, kBK, kt_lo, kt_hi);
+  int lo, hi;                                    // this call's key tiles ...
+  key_tiles(p, 0, p.Sq, kDK, lo, hi);
+  const int per = (hi - lo + kSplit - 1) / kSplit;
+  const int t0 = lo + split * per;               // ... and this block's
+  const int nt = max(0, min(hi, t0 + per) - t0);
 
+  for (int s = 0; s < kDStages - 1; ++s) {
+    if (s < nt)
+      load_stage<HD>(reinterpret_cast<__nv_bfloat16*>(ring + s * L::STAGE),
+                     K, V, (t0 + s) * kDK, p.Sk, tid);
+    cp_async_commit();
+  }
+  for (int c = tid; c < kDR * HD / 8; c += kDWarps * 32) {
+    const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (r < R)
+      x = *reinterpret_cast<const uint4*>(Q + static_cast<size_t>(r) * HD +
+                                          col);
+    *reinterpret_cast<uint4*>(sQ + r * LD + col) = x;
+  }
+  __syncthreads();
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldsm_x4(qf[kk], sQ + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;                     // a dead row sees no key
+    qpos[i] = r < R ? r % p.Sq + p.Sk - p.Sq : -0x40000000;
+  }
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  uint32_t qf[KD][4];                            // q as A fragments
-  if (kt_lo < kt_hi) {
-    load_tile<HD, LD, kBQ>(sQ, Q, q0, p.Sq, tid);
-    load_tile<HD, LD, kBK>(sK, K, kt_lo * kBK, p.Sk, tid);
-    load_tile<HD, LD, kBK>(sV, V, kt_lo * kBK, p.Sk, tid);
+  for (int it = 0; it < nt; ++it) {
+    const int next = it + kDStages - 1;
+    if (next < nt)
+      load_stage<HD>(
+          reinterpret_cast<__nv_bfloat16*>(ring + (next % kDStages) *
+                                                      L::STAGE),
+          K, V, (t0 + next) * kDK, p.Sk, tid);
     cp_async_commit();
-    cp_async_wait<0>();
+    cp_async_wait<kDStages - 1>();               // stage `it` has landed
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-      ldsm_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                          (lane >> 4) * 8);
-  }
+    const auto* k_s = reinterpret_cast<const __nv_bfloat16*>(
+                          ring + (it % kDStages) * L::STAGE) +
+                      warp * 16 * LD;            // this warp's 16 keys
+    const auto* v_s = k_s + kDK * LD;
+    const int k0 = (t0 + it) * kDK + warp * 16;
 
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int stage = (kt - kt_lo) & 1;
-    if (kt + 1 < kt_hi) {
-      load_tile<HD, LD, kBK>(sK + (stage ^ 1) * kBK * LD, K, (kt + 1) * kBK,
-                             p.Sk, tid);
-      load_tile<HD, LD, kBK>(sV + (stage ^ 1) * kBK * LD, V, (kt + 1) * kBK,
-                             p.Sk, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();                          // this tile has landed
-    __syncthreads();
-    const __nv_bfloat16* k_s = sK + stage * kBK * LD;
-    const __nv_bfloat16* v_s = sV + stage * kBK * LD;
-
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, k_s + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                       kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
-      }
+      uint32_t b[4];
+      ldsm_x4(b, k_s + ((lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                     ((lane >> 3) & 1) * 8);
+      mma_bf16(s[0], qf[kk], b[0], b[1]);
+      mma_bf16(s[1], qf[kk], b[2], b[3]);
     }
-
-    const int k0 = kt * kBK;
-    const bool full = tile_full(p, q0, q1, k0, k0 + kBK);
+    const bool full = tile_full(p, 0, p.Sq, k0, k0 + 16);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = cap(p, s[n][e]);
-        if (!full && !allowed(p, k0 + n * 8 + 2 * tq + (e & 1), qpos[e >> 1]))
-          x = kNeg;
+        float x = score2<CAP>(p, s[n][e]);
+        if (!full && !allowed(p, k0 + n * 8 + 2 * t + (e & 1), qpos[e >> 1]))
+          x = -INFINITY;
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+    float mu[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
-      const float alpha = expf(m[i] - mx[i]);
-      m[i] = mx[i];
+      const float alpha = fold_max(m[i], mx[i], mu[i]);
       l[i] *= alpha;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
@@ -266,48 +780,98 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bf16_kernel(Params p) {
       }
     }
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = weight(s[n][e], m[e >> 1]);
+        s[n][e] = ex2(s[n][e] - mu[e >> 1]);
         l[e >> 1] += s[n][e];
       }
-
+    const uint32_t a[4] = {pack_bf16(s[0][0], s[0][1]),
+                           pack_bf16(s[0][2], s[0][3]),
+                           pack_bf16(s[1][0], s[1][1]),
+                           pack_bf16(s[1][2], s[1][3])};
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < NO / 2; ++dp) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                   LD + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], a, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
-      }
+    for (int dp = 0; dp < NO / 2; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, v_s + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                           dp * 16 + (lane >> 4) * 8);
+      mma_bf16(o[2 * dp], a, b[0], b[1]);
+      mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
     }
     __syncthreads();                             // stage free for reuse
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
+  // the four warps' partials into the ring, merged into the block's
+  float* wm = reinterpret_cast<float*>(ring);    // [warp][row]
+  float* wl = wm + kDWarps * kDR;
+  float* wo = wl + kDWarps * kDR;                // [warp][row][HD]
+  float* bm = wo + kDWarps * kDR * HD;           // [row]
+  float* bl = bm + kDR;
+  float* bo = bl + kDR;                          // [row][HD]
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(kFull, l[i], 1);
     l[i] += __shfl_xor_sync(kFull, l[i], 2);
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    const int r = r0 + 8 * i;
-    if (r < p.Sq) {
+    const int r = warp * kDR + g + 8 * i;
+    if (t == 0) {
+      wm[r] = m[i];
+      wl[r] = l[i];
+    }
 #pragma unroll
-      for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<uint32_t*>(O + static_cast<size_t>(r) * HD + n * 8 +
-                                     2 * tq) =
-            pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    for (int n = 0; n < NO; ++n) {
+      wo[r * HD + n * 8 + 2 * t] = o[n][2 * i];
+      wo[r * HD + n * 8 + 2 * t + 1] = o[n][2 * i + 1];
     }
   }
-}
+  __syncthreads();
+  for (int x = tid; x < kDR * HD; x += kDWarps * 32) {
+    const int r = x / HD, c = x % HD;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDWarps; ++w) M = fmaxf(M, wm[w * kDR + r]);
+    const float mu = M == -INFINITY ? 0.f : M;
+    float sl = 0.f, so = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDWarps; ++w) {
+      const float f = ex2(wm[w * kDR + r] - mu);
+      sl += wl[w * kDR + r] * f;
+      so += wo[(w * kDR + r) * HD + c] * f;
+    }
+    bo[r * HD + c] = so;
+    if (c == 0) {
+      bm[r] = M;
+      bl[r] = sl;
+    }
+  }
+  cluster.sync();                                // every block's partial
+
+  // this block finishes columns [split * CS, split * CS + CS) of each row
+  constexpr int CS = HD / kSplit;
+  auto* O = static_cast<__nv_bfloat16*>(p.o) + static_cast<size_t>(kv) * R * HD;
+  for (int x = tid; x < kDR * CS; x += kDWarps * 32) {
+    const int r = x / CS, c = split * CS + x % CS;
+    if (r >= R) continue;
+    float M = -INFINITY;
+    for (int b = 0; b < kSplit; ++b)
+      M = fmaxf(M, cluster.map_shared_rank(bm, b)[r]);
+    const float mu = M == -INFINITY ? 0.f : M;
+    float sl = 0.f, so = 0.f;
+    for (int b = 0; b < kSplit; ++b) {
+      const float* rm = cluster.map_shared_rank(bm, b);
+      const float f = ex2(rm[r] - mu);
+      sl += rm[kDR + r] * f;                     // bl
+      so += rm[2 * kDR + r * HD + c] * f;        // bo
+    }
+    O[static_cast<size_t>(r) * HD + c] =
+        __float2bfloat16_rn(sl > 0.f ? so / sl : 0.f);
+  }
+  cluster.sync();                                // no block leaves while
+}                                                // another reads its memory
 
 // ---------------------------------------------------------------- fp32 path
+constexpr int kBQ = 64;                          // query rows per block (fp32)
 constexpr int kBK32 = 32;                        // keys per tile (fp32)
 constexpr int kT32 = 16;                         // 16 x 16 threads
 
@@ -443,11 +1007,10 @@ __global__ void __launch_bounds__(kT32 * kT32) flash_f32_kernel(Params p) {
   }
 }
 
-// Opts the kernel into `smem` bytes of dynamic shared memory once, then
-// launches one block per (64 query rows, head).
+// ------------------------------------------------------------------ launch
+// Opts `kernel` into `smem` bytes of dynamic shared memory once.
 template <typename Kernel>
-cudaError_t run(Kernel kernel, int threads, size_t smem, bool& opted,
-                const Params& p, int BH, cudaStream_t stream) {
+cudaError_t opt_in(Kernel kernel, size_t smem, bool& opted) {
   if (!opted && smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -455,48 +1018,119 @@ cudaError_t run(Kernel kernel, int threads, size_t smem, bool& opted,
     if (e != cudaSuccess) return e;
   }
   opted = true;
-  const dim3 grid((p.Sq + kBQ - 1) / kBQ, BH);
-  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaSuccess;
+}
+
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// A (hd, S, rows) bf16 tensor map with boxes of (CW, 128, 1), swizzled as
+// the wgmma descriptors read them.
+template <int HD>
+bool tensor_map(CUtensorMap* map, const void* ptr, int S, int rows) {
+  using L = WLayout<HD>;
+  const auto encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {HD, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {HD * 2ull, HD * 2ull * S};
+  const cuuint32_t box[3] = {L::CW, 128, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                L::CW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+enum Path { kPathF32 = 0, kPathWgmma = 1, kPathDecode = 2 };
+
+template <int HD, bool CAP>
+cudaError_t launch_bf16(const Params& p, int BH, int BKV, int path,
+                        cudaStream_t stream) {
+  if (path == kPathWgmma) {
+    static bool opted = false;
+    using L = WLayout<HD>;
+    cudaError_t e = opt_in(flash_wgmma_kernel<HD, CAP>, L::SMEM, opted);
+    if (e != cudaSuccess) return e;
+    CUtensorMap tq, tk, tv;
+    if (!tensor_map<HD>(&tq, p.q, p.Sq, BH) ||
+        !tensor_map<HD>(&tk, p.k, p.Sk, BKV) ||
+        !tensor_map<HD>(&tv, p.v, p.Sk, BKV))
+      return cudaErrorInvalidValue;
+    const dim3 grid((p.Sq + kWQ - 1) / kWQ, BH);
+    flash_wgmma_kernel<HD, CAP>
+        <<<grid, kWThreads, L::SMEM, stream>>>(tq, tk, tv, p);
+    return cudaGetLastError();
+  }
+  static bool opted = false;
+  using L = DLayout<HD>;
+  cudaError_t e = opt_in(flash_decode_kernel<HD, CAP>, L::SMEM, opted);
+  if (e != cudaSuccess) return e;
+  flash_decode_kernel<HD, CAP>
+      <<<dim3(kSplit, BKV), kDWarps * 32, L::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch(const Params& p, int BH, bool bf16, cudaStream_t stream) {
-  if (bf16) {
-    static bool opted = false;
-    const size_t smem = sizeof(__nv_bfloat16) * (kBQ + 4 * kBK) * (HD + 8);
-    return run(flash_bf16_kernel<HD>, kWarps * 32, smem, opted, p, BH,
-               stream);
-  }
+cudaError_t launch(const Params& p, int BH, int BKV, int path,
+                   cudaStream_t stream) {
+  if (path != kPathF32)
+    return p.softcap > 0.f ? launch_bf16<HD, true>(p, BH, BKV, path, stream)
+                           : launch_bf16<HD, false>(p, BH, BKV, path, stream);
   static bool opted = false;
   const size_t smem = sizeof(float) * ((kBQ + kBK32) * (HD + 1) +
                                        kBK32 * HD + kBQ * (kBK32 + 1));
-  return run(flash_f32_kernel<HD>, kT32 * kT32, smem, opted, p, BH, stream);
+  cudaError_t e = opt_in(flash_f32_kernel<HD>, smem, opted);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Sq + kBQ - 1) / kBQ, BH);
+  flash_f32_kernel<HD><<<grid, kT32 * kT32, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry point (loaded with ctypes). q/k/v/o are device pointers of
-// contiguous, 16-byte aligned tensors, all bf16 (`bf16` = 1) or all fp32;
-// hd must be 32, 64 or 128; `stream` is a cudaStream_t. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// contiguous, 16-byte aligned tensors, all fp32 for `path` 0 (fp32) and all
+// bf16 for paths 1 (wgmma) and 2 (decode, Sq * BH / BKV <= 16); hd must be
+// 32, 64 or 128; `stream` is a cudaStream_t. Returns cudaGetLastError()
+// after the launch (0 = launched), or cudaErrorInvalidValue for a shape or
+// path the kernels do not take.
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, void* o, int BH,
                                        int BKV, int Sq, int Sk, int hd,
-                                       int bf16, int causal, int window,
+                                       int path, int causal, int window,
                                        float scale, float softcap,
                                        void* stream) {
   if (BH == 0 || Sq == 0) return 0;
-  if (BH < 0 || BKV < 1 || BH % BKV != 0 || BH > 65535 || Sq < 0 || Sk < 0)
+  if (BH < 0 || BKV < 1 || BH % BKV != 0 || Sq < 0 || Sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q, k, v, o, Sq, Sk, BH / BKV, causal, window, scale,
-                 softcap};
+  const int G = BH / BKV;
+  const bool ok = (path == kPathF32 && BH <= 65535) ||
+                  (path == kPathWgmma && Sk > 0 && BH <= 65535) ||
+                  (path == kPathDecode && Sq * G <= kDR && BKV <= 65535);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{q, k, v, o, Sq, Sk, G, causal, window, scale, softcap,
+                 scale * kLog2e,
+                 softcap > 0.f ? scale / softcap : 0.f, softcap * kLog2e};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (hd) {
-    case 32: e = launch<32>(p, BH, bf16 != 0, s); break;
-    case 64: e = launch<64>(p, BH, bf16 != 0, s); break;
-    case 128: e = launch<128>(p, BH, bf16 != 0, s); break;
+    case 32: e = launch<32>(p, BH, BKV, path, s); break;
+    case 64: e = launch<64>(p, BH, BKV, path, s); break;
+    case 128: e = launch<128>(p, BH, BKV, path, s); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

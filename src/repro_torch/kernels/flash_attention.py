@@ -9,14 +9,22 @@ masks; an optional tanh softcap after the scale; online softmax with fp32
 accumulators; a fully-masked row gives 0. The output is in q's dtype.
 
 What bounds it on an H100: operations, 4·hd flops per allowed (query, key)
-pair and head, except in decoding, where the bytes of k and v do. bf16
-runs on the tensor cores through mma.sync with fp32 accumulation; fp32
-runs exactly on the FMA units, without TF32. Key tiles with no allowed key
-are skipped, so a sliding window costs O(Sq·window)
-(csrc/flash_attention.cu says more).
+pair and head, except in decoding, where the bytes of k and v do. Three
+kernels, one launch per call, picked by `kernel_path` from the shapes:
+
+- "wgmma": bf16 prefill, 128 query rows a block on two consumer
+  warpgroups, k/v tiles fed by TMA, both products on wgmma;
+- "decode": bf16 when the Sq·G query rows of one k/v head fit one
+  16-row tile; they are packed into it, and the keys are split over the
+  8 blocks of a cluster, whose partials merge through distributed shared
+  memory (`ref.flash_attention_split_ref` is this algorithm in PyTorch);
+- "fp32": exactly on the FMA units, without TF32.
+
+Key tiles with no allowed key are skipped, so a sliding window costs
+O(Sq·window) (csrc/flash_attention.cu says more).
 
 `flash_attention` runs its plain version, `ref.flash_attention_ref`, for
-CPU tensors only; for CUDA tensors it launches the kernel or raises.
+CPU tensors only; for CUDA tensors it launches a kernel or raises.
 `launches` counts launches.
 """
 from __future__ import annotations
@@ -29,6 +37,11 @@ from repro_torch.kernels import ref
 
 HEAD_DIMS = (32, 64, 128)     # the kernel's head widths
 DTYPES = (torch.float32, torch.bfloat16)
+DECODE_ROWS = 16              # packed query rows of the decode kernel's tile
+DECODE_TILE = 64              # keys per stage of the decode kernel
+DECODE_SPLITS = 8             # blocks of a cluster, each a share of the keys
+PATHS = {"fp32": 0, "wgmma": 1, "decode": 2}   # the C entry point's codes
+MAX_GRID_Y = 65535
 
 launches = 0                  # kernel launches (not plain-version calls)
 
@@ -56,6 +69,26 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous")
 
 
+def kernel_path(BH, BKV, Sq, Sk, hd, dtype) -> str:
+    """The kernel that takes a call with these shapes: "fp32", "wgmma" or
+    "decode". Raises for a shape no kernel takes."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes hd in {HEAD_DIMS}, got hd={hd}")
+    if dtype == torch.float32:
+        path, rows = "fp32", BH
+    elif Sq * (BH // BKV) <= DECODE_ROWS:
+        path, rows = "decode", BKV
+    elif Sk > 0:
+        path, rows = "wgmma", BH
+    else:
+        raise ValueError("no bf16 kernel takes Sk=0 with more than "
+                         f"{DECODE_ROWS} query rows per k/v head")
+    if rows > MAX_GRID_Y:
+        raise ValueError(f"the {path} kernel takes at most {MAX_GRID_Y} "
+                         f"rows of q or k/v, got {rows}")
+    return path
+
+
 def _library():
     from repro_torch.kernels import build
     fn = build.load("flash_attention").flash_attention_forward
@@ -67,15 +100,16 @@ def _library():
 
 
 def _launch(q, k, v, out, *, causal, window, softcap, scale) -> int:
-    """Launch the kernel on checked CUDA tensors; returns the CUDA error
-    code (0 = launched)."""
+    """Launch the kernel `kernel_path` picks on checked CUDA tensors;
+    returns the CUDA error code (0 = launched)."""
     BH, Sq, hd = q.shape
     BKV, Sk, _ = k.shape
+    path = kernel_path(BH, BKV, Sq, Sk, hd, q.dtype)
     scale = hd ** -0.5 if scale is None else scale
     with torch.cuda.device(q.device):
         return _library()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            BH, BKV, Sq, Sk, hd, int(q.dtype == torch.bfloat16), int(causal),
+            BH, BKV, Sq, Sk, hd, PATHS[path], int(causal),
             int(window or 0), float(scale), float(softcap or 0.0),
             torch.cuda.current_stream().cuda_stream)
 
@@ -92,9 +126,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                                        softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    hd = q.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes hd in {HEAD_DIMS}, got hd={hd}")
+    kernel_path(q.shape[0], k.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                q.dtype)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

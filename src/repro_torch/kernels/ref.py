@@ -5,6 +5,9 @@ any device.
 `flash_attention_ref`, `mamba_scan_ref` and `tree_conv_ref` keep the
 reference oracles' signatures and semantics (the allclose ground truth);
 `flash_attention_ref` also takes GQA k/v, as the kernel does.
+`flash_attention_split_ref` is the attention decode kernel's algorithm
+(key splits, then a log-sum-exp merge), for the tests to hold to the
+reference; no wrapper runs it.
 `tree_conv_batch_ref` and `tree_cnn_fused_ref` are the plain versions of
 the two tree kernels. They read a zero row for a child index outside
 [0, N), as the reference's Pallas kernels' one-hots do, where the oracle
@@ -42,6 +45,77 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     s = s.masked_fill(~mask, -torch.inf)
     p = torch.softmax(s, dim=-1).nan_to_num(nan=0.0)   # fully-masked -> 0
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def _scores(q, k, *, causal, window, softcap, scale):
+    """Masked fp32 scores (BH, Sq, Sk) of GQA q and k, -inf where masked."""
+    G = q.shape[0] // k.shape[0]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=0)
+    hd = q.shape[-1]
+    scale = (hd ** -0.5) if scale is None else scale
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if softcap and softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    Sq, Sk = q.shape[1], k.shape[1]
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window and window > 0:
+        mask &= kpos > qpos - window
+    return s.masked_fill(~mask, -torch.inf)
+
+
+def split_key_ranges(Sq, Sk, *, causal, window, splits, tile):
+    """The key ranges [a, b) of the attention decode kernel's splits: the
+    tiles of `tile` keys that hold an allowed key for some query row,
+    dealt out in runs of ceil(tiles / splits); a split may be empty."""
+    off = Sk - Sq
+    klo, khi = 0, Sk - 1
+    if causal:
+        khi = min(khi, Sq - 1 + off)
+    if window and window > 0:
+        klo = max(klo, off - window + 1)
+    lo = hi = 0
+    if khi >= klo:
+        lo, hi = klo // tile, khi // tile + 1
+    per = -(-(hi - lo) // splits)
+    return [(min(Sk, (lo + c * per) * tile),
+             min(Sk, min(hi, lo + (c + 1) * per) * tile))
+            for c in range(splits)]
+
+
+def flash_attention_split_ref(q, k, v, *, causal=True, window=0,
+                              softcap=0.0, scale=None, splits, tile):
+    """The attention decode kernel's algorithm: one partial (running max m,
+    sum l, unnormalised O) per key split of `split_key_ranges`, then the
+    log-sum-exp merge O = sum_i O_i e^(m_i - M) / sum_i l_i e^(m_i - M),
+    M = max_i m_i; a split with no allowed key adds nothing, a row with
+    none gives 0. fp32; same arguments and result as
+    `flash_attention_ref`."""
+    s = _scores(q, k, causal=causal, window=window, softcap=softcap,
+                scale=scale)
+    G = q.shape[0] // k.shape[0]
+    vf = v.float().repeat_interleave(G, dim=0)
+    BH, Sq, hd = q.shape
+    ms, ls, os = [], [], []
+    for a, b in split_key_ranges(Sq, k.shape[1], causal=causal,
+                                 window=window, splits=splits, tile=tile):
+        part = s[..., a:max(a, b)]
+        m = (part.amax(-1, keepdim=True) if part.shape[-1]
+             else s.new_full((BH, Sq, 1), -torch.inf))
+        p = torch.exp(part - torch.where(torch.isinf(m), 0.0, m))
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        os.append(p @ vf[:, a:max(a, b)])
+    M = torch.stack(ms).amax(0)
+    f = [torch.exp(m - torch.where(torch.isinf(M), 0.0, M)) for m in ms]
+    L = sum(li * fi for li, fi in zip(ls, f))
+    O = sum(oi * fi for oi, fi in zip(os, f))
+    out = torch.where(L > 0, O / torch.where(L > 0, L, 1.0), 0.0)
+    return out.to(q.dtype)
 
 
 def mamba_scan_ref(x, dt, A, Bs, Cs, h0=None):

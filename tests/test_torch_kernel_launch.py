@@ -102,12 +102,21 @@ from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 
-def _close(out, want, tol):
+def _close(out, want, tol, rtol=None):
+    """|out - want| <= tol + rtol * |want| everywhere (rtol defaults to
+    tol)."""
     out, want = out.float(), want.float()
     assert out.shape == want.shape
     assert torch.isfinite(out).all()
-    bad = (out - want).abs() > tol + tol * want.abs()
+    rtol = tol if rtol is None else rtol
+    bad = (out - want).abs() > tol + rtol * want.abs()
     assert not bad.any(), float((out - want).abs().max())
+
+
+# bf16 attention: rtol covers one rounding of the output (2^-7 |x|), atol
+# P rounded to bf16 for the P.V product (at most 2^-9 of a weighted mean
+# of |v|); a dropped 64-key tile moves these outputs by far more
+BF16_ATOL, BF16_RTOL = 4e-3, 1e-2
 
 
 def _attn(B, Sq, Sk, H, K, hd, dtype, seed=0):
@@ -146,7 +155,68 @@ def test_flash_attention_one_launch_per_call(cuda, B, Sq, Sk, H, K, hd,
         want = want.reshape(B, H, Sq, hd).transpose(1, 2)
     torch.cuda.synchronize()
     assert out.dtype == dtype
-    _close(out, want, 2e-5 if dtype == torch.float32 else 2e-2)
+    if dtype == torch.float32:
+        _close(out, want, 2e-5)
+    else:
+        _close(out, want, BF16_ATOL, BF16_RTOL)
+
+
+def _attention_case(cuda, B, Sq, Sk, H, K, hd, causal, window, cap, path):
+    """One bf16 mha_flash call on the card: the path `kernel_path` takes,
+    one launch, agreement with the plain version."""
+    q, k, v = (t.to(cuda) for t in _attn(B, Sq, Sk, H, K, hd,
+                                           torch.bfloat16, seed=Sk + H))
+    assert fa.kernel_path(B * H, B * K, Sq, Sk, hd, q.dtype) == path
+    with torch.inference_mode():
+        before = fa.launches
+        out = ops.mha_flash(q, k, v, causal=causal, window=window,
+                            softcap=cap)
+        assert fa.launches == before + 1
+        qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
+        kf = k.transpose(1, 2).reshape(B * K, Sk, hd)
+        vf = v.transpose(1, 2).reshape(B * K, Sk, hd)
+        want = ref.flash_attention_ref(qf, kf, vf, causal=causal,
+                                       window=window, softcap=cap)
+        want = want.reshape(B, H, Sq, hd).transpose(1, 2)
+    torch.cuda.synchronize()
+    _close(out, want, BF16_ATOL, BF16_RTOL)
+    return out
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_decode_packs_the_gqa_group(cuda, G, hd):
+    _attention_case(cuda, 2, 1, 300, 2 * G, 2, hd, True, 0, 0.0, "decode")
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal,window,cap,path", [
+    (1, 4, 200, 16, 4, 64, True, 0, 0.0, "decode"),    # Sq*G = 16: the edge
+    (1, 2, 200, 16, 2, 64, True, 0, 0.0, "decode"),    # 8 * 2 = 16
+    (1, 5, 200, 16, 4, 64, True, 0, 0.0, "wgmma"),     # 20 rows: past it
+    (2, 1, 1000, 8, 2, 128, True, 0, 0.0, "decode"),   # 16 tiles, 8 splits
+    (2, 3, 100, 4, 4, 128, True, 0, 0.0, "decode"),    # Sk % 64 != 0
+    (1, 1, 4099, 4, 1, 128, False, 0, 30.0, "decode"),  # softcap, no mask
+    (2, 1, 300, 8, 2, 64, True, 64, 0.0, "decode"),    # 6 splits keyless
+    (1, 2, 9000, 4, 2, 128, True, 32, 50.0, "decode"),  # one split live
+    (1, 8, 5, 2, 1, 64, True, 0, 0.0, "decode"),       # Sq > Sk
+    (1, 300, 100, 4, 2, 128, True, 0, 0.0, "wgmma"),   # Sq > Sk
+])
+def test_decode_and_edge_paths(cuda, B, Sq, Sk, H, K, hd, causal, window,
+                               cap, path):
+    out = _attention_case(cuda, B, Sq, Sk, H, K, hd, causal, window, cap,
+                          path)
+    if Sq > Sk:                                # rows with no key give 0
+        assert not out[:, :Sq - Sk].any()
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("Sq,Sk,causal,window,cap", [
+    (512, 512, True, 0, 0.0),
+    (384, 700, True, 200, 30.0),              # window across tiles, softcap
+    (130, 130, False, 0, 0.0),                # ragged last tile, no mask
+])
+def test_wgmma_path_every_head_width(cuda, hd, Sq, Sk, causal, window, cap):
+    _attention_case(cuda, 1, Sq, Sk, 4, 2, hd, causal, window, cap, "wgmma")
 
 
 def _scan(B, S, di, N, seed=0):

@@ -213,3 +213,92 @@ def test_tree_conv_oracle_matches_reference(oob):
     want = jref.tree_conv_ref(*map(jnp.asarray, args))
     out = ref.tree_conv_ref(*map(torch.from_numpy, args))
     _assert_close(out, want, 1e-5)
+
+
+# ------------------------------------- the decode kernel's split-key merge
+SPLIT_EXTRA = [                         # beyond tests/test_kernels.py's
+    (2, 2, 1, 300, 64, 64, 0.0),        # window: 6 of 8 splits see no key
+    (4, 1, 4, 130, 32, 0, 30.0),        # Sq*G = 16 rows, 130 keys, softcap
+    (2, 1, 80, 48, 32, 0, 0.0),         # Sq > Sk: rows with no key -> 0
+]
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("BH,BKV,Sq,Sk,hd,window,cap",
+                         ATTN_CASES + SPLIT_EXTRA)
+def test_flash_attention_split_merge_matches_pallas(BH, BKV, Sq, Sk, hd,
+                                                    window, cap, splits):
+    """The decode kernel's algorithm (one partial per key split, merged by
+    log-sum-exp) against the Pallas kernel, fp32."""
+    rng = np.random.default_rng(BH * 1000 + Sq + Sk + hd + window)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.standard_normal(s).astype(np.float32))
+        for s in ((BH, Sq, hd), (BKV, Sk, hd), (BKV, Sk, hd)))
+    want = jax_flash_attention(qj, kj, vj, causal=True, window=window,
+                               softcap=cap, interpret=True)
+    out = ref.flash_attention_split_ref(qt, kt, vt, causal=True,
+                                        window=window, softcap=cap,
+                                        splits=splits, tile=fa.DECODE_TILE)
+    _assert_close(out, want, 2e-5)
+    if Sq > Sk:
+        assert not out[:, :Sq - Sk].any()
+
+
+def test_split_key_ranges_cover_the_allowed_keys_once():
+    ranges = ref.split_key_ranges(1, 300, causal=True, window=64, splits=8,
+                                  tile=64)
+    live = [(a, b) for a, b in ranges if b > a]
+    assert live == [(192, 256), (256, 300)]       # keys 236..299 allowed
+    assert len(ranges) - len(live) == 6
+    ranges = ref.split_key_ranges(1, 4096, causal=True, window=0,
+                                  splits=fa.DECODE_SPLITS,
+                                  tile=fa.DECODE_TILE)    # qwen3-8b decode
+    assert ranges == [(512 * c, 512 * (c + 1)) for c in range(8)]
+    assert all(b <= a for a, b in ref.split_key_ranges(
+        3, 0, causal=True, window=0, splits=8, tile=64))
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_kernel_path_of_every_chip_smoke_attention_case():
+    want = {"qwen3-8b/prefill": "wgmma", "qwen3-8b/decode": "decode",
+            "gemma2-27b/local": "wgmma", "qwen3-8b/fp32": "fp32",
+            "gemma2-27b/decode-local": "decode",
+            "qwen3-8b/suffix4": "decode"}
+    got = {}
+    for case, B, Sq, Sk, H, K, hd, *_, dtype, _a, _r, _s in \
+            _chip_smoke().ATTENTION_CASES:
+        got[case] = fa.kernel_path(B * H, B * K, Sq, Sk, hd, dtype)
+    assert got == want
+
+
+@pytest.mark.parametrize("BH,BKV,Sq,Sk,hd,dtype,path", [
+    (32, 8, 4, 64, 128, torch.bfloat16, "decode"),     # 16 rows: the edge
+    (32, 8, 5, 64, 128, torch.bfloat16, "wgmma"),      # 20 rows
+    (8, 8, 16, 16, 32, torch.bfloat16, "decode"),
+    (8, 1, 2, 9, 64, torch.bfloat16, "decode"),
+    (8, 1, 3, 9, 64, torch.bfloat16, "wgmma"),
+    (4, 4, 1, 0, 64, torch.bfloat16, "decode"),        # no keys: zeros
+    (4, 4, 1, 8, 64, torch.float32, "fp32"),
+])
+def test_kernel_path_dispatch(BH, BKV, Sq, Sk, hd, dtype, path):
+    assert fa.kernel_path(BH, BKV, Sq, Sk, hd, dtype) == path
+
+
+@pytest.mark.parametrize("BH,BKV,Sq,Sk,hd,dtype", [
+    (4, 4, 64, 64, 48, torch.bfloat16),                # no such width
+    (4, 4, 64, 0, 64, torch.bfloat16),                 # wgmma needs keys
+    (70000, 1, 64, 64, 64, torch.float32),             # grid too tall
+])
+def test_kernel_path_raises_for_shapes_no_kernel_takes(BH, BKV, Sq, Sk, hd,
+                                                       dtype):
+    with pytest.raises(ValueError):
+        fa.kernel_path(BH, BKV, Sq, Sk, hd, dtype)
