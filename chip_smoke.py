@@ -22,17 +22,23 @@ Phases, each printing one JSON line:
            configs (src/repro/configs): `mha_flash` at qwen3-8b prefill,
            decode, a 4-query suffix and fp32 and at gemma2-27b's
            sliding-window layer in prefill and decode,
-           `selective_scan_fused` at falcon-mamba-7b, `tree_conv_batch`
-           at the AQORA encoder's two layer shapes on step-18 weights.
+           `selective_scan_fused` at falcon-mamba-7b and at jamba-1.5-large's
+           Mamba layer, `tree_conv_batch` at the AQORA encoder's two layer
+           shapes on step-18 weights.
            Each call must launch its kernel exactly once and agree with
            the kernel's plain version on the card, |kernel - plain| <=
            atol + rtol * |plain| (ATTENTION_CASES gives the attention
            cases' limits; the scan's are 1e-4, the tree conv's 1e-5);
            every case is checked before any fails. The line gives each
            case's error and the share of its limit it takes, its kernel's
-           time, the plain version's, the card's bound and, where one
-           SDPA call computes the same function (every qwen3-8b case),
-           that call's time.
+           time, the plain version's, the card's bound, the special-function
+           floor of its exps (`sfu_ms`: exps over 16 a clock on each SM at
+           the card's top SM clock) and, where one SDPA call computes the
+           same function (every qwen3-8b case), that call's time. The scan
+           and tree-conv rows add the kernel's own time by torch.profiler
+           (`device_ms`); the scan rows also time the whole
+           `selective_scan_fused` call (`op_ms`) and count its device
+           kernels under torch.profiler, which must be one.
 
 With `--profile`, one more card serve runs under `torch.profiler`: its
 line gives the device's busy time by kernel and its idle share of the
@@ -45,6 +51,7 @@ without CUDA the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import pathlib
 import subprocess
@@ -77,6 +84,7 @@ TOL = 1e-4                 # the reference's own fused-vs-jnp tolerance
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM bf16 tensor cores, dense
+SFU_PER_CLOCK = 16         # exps per clock on each SM (special-function units)
 N_LANES = 8
 
 
@@ -89,6 +97,22 @@ def nvidia_smi() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's top SM clock, from nvidia-smi."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
+def sfu_ms(exps: float) -> float:
+    """The least time the card's special-function units take for `exps`
+    exps."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps / (sms * SFU_PER_CLOCK * sm_clock_hz()) * 1e3
 
 
 def cuda_ms(fn, *, launches: int, reps: int = 5, warmup: int = 10) -> float:
@@ -208,6 +232,7 @@ def phase_device():
     smi = nvidia_smi()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "sm_clock_max_mhz": sm_clock_hz() / 1e6,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi
 
@@ -413,6 +438,12 @@ ATTENTION_CASES = (
 )
 PLAIN_HEADS = 8            # plain attention in slices of 8 heads (memory)
 
+# (case, S, d_inner, d_state): src/repro/configs' widths, batch 1
+SCAN_CASES = (
+    ("falcon-mamba-7b", 2048, 2 * 4096, 16),        # d_model 4096, expand 2
+    ("jamba-1.5-large/mamba", 2048, 2 * 8192, 16),  # d_model 8192, expand 2
+)
+
 
 def closeness(case, out, want, atol, rtol):
     """How `out` stands to `want`: "ok" if both have one shape, `out` is
@@ -488,9 +519,10 @@ def ops_call(kernel, fn, *args, **kw):
 
 def ops_inputs(ckpt_tree, db, wl, meta):
     """Every ops case's inputs, made on the card from one seed: model
-    layout for attention, falcon-mamba-7b's widths for the scan (d_inner
-    = 2 * 4096, d_state 16, Mamba's A = -(1..16) per channel), the
-    serving tick's trees and random trees at N=64 for the tree conv."""
+    layout for attention; for the scan falcon-mamba-7b's widths (d_inner
+    = 2 * 4096) and jamba-1.5-large's (d_inner = 2 * 8192), both d_state
+    16 with Mamba's A = -(1..16) per channel; the serving tick's trees
+    and random trees at N=64 for the tree conv."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
@@ -505,16 +537,18 @@ def ops_inputs(ckpt_tree, db, wl, meta):
                               randn(B, Sk, K, hd, dtype=dtype),
                               randn(B, Sk, K, hd, dtype=dtype)),
                      "kw": dict(causal=causal, window=window, softcap=cap)})
-    S, di, N = 2048, 8192, 16
-    scan = (randn(1, S, di), randn(1, S, di).abs() * 0.1,
+    scans = []
+    for case, S, di, N in SCAN_CASES:
+        scans.append((case, (
+            randn(1, S, di), randn(1, S, di).abs() * 0.1,
             -torch.arange(1, N + 1, device="cuda",
                           dtype=torch.float32).repeat(di, 1),
-            randn(1, S, N), randn(1, S, N), randn(di))
+            randn(1, S, N), randn(1, S, N), randn(di))))
     trained = to_cuda(ckpt_tree["actor"]["enc"])
     trees = (to_cuda(serving_batch(db, wl, meta)),
              to_cuda(random_batch(np.random.default_rng(1), N_LANES, 64,
                                   meta.feat_dim)))
-    return attn, scan, trained, trees
+    return attn, scans, trained, trees
 
 
 def phase_ops(ckpt_tree, db, wl, meta):
@@ -523,14 +557,16 @@ def phase_ops(ckpt_tree, db, wl, meta):
     on the same inputs, and fail naming each case outside its limit; then
     time each kernel, its plain version and, where one computes the same
     function, PyTorch's own call."""
-    attn, scan, trained, (tree1, tree2) = ops_inputs(ckpt_tree, db, wl, meta)
+    attn, scans, trained, (tree1, tree2) = ops_inputs(ckpt_tree, db, wl,
+                                                      meta)
     fa.launches = ms.launches = 0
     tree_conv.tree_conv_launches = tree_conv.tree_cnn_fused_launches = 0
     with torch.inference_mode():
         for a in attn:
             a["out"] = ops_call("flash_attention", ops.mha_flash, *a["args"],
                                 **a["kw"])
-        scan_out = ops_call("mamba_scan", ops.selective_scan_fused, *scan)
+        scan_outs = [ops_call("mamba_scan", ops.selective_scan_fused, *scan)
+                     for _, scan in scans]
         conv1 = ops_call("tree_conv", ops.tree_conv_batch, *tree1,
                          trained["conv1"])
         h1 = ops_call("tree_conv", ops.tree_conv_batch, *tree2,
@@ -545,16 +581,21 @@ def phase_ops(ckpt_tree, db, wl, meta):
              ("aqora/conv2", (h1, *tree2[1:]), trained["conv2"], conv2))
     with torch.inference_mode():
         held = ([attention_check(a) for a in attn]
-                + [scan_check(scan, scan_out)]
+                + [scan_check(case, scan, out)
+                   for (case, scan), out in zip(scans, scan_outs)]
                 + [conv_check(*c) for c in convs])
     bad = [h for h in held if not h["ok"]]
     if bad:
         raise AssertionError(f"kernel and plain version disagree: {bad}")
     with torch.inference_mode():
-        rows = ([attention_row(a) for a in attn] + [scan_row(scan)]
+        rows = ([attention_row(a) for a in attn]
+                + [scan_row(case, scan) for case, scan in scans]
                 + [conv_row(*c) for c in convs])
     for row, h in zip(rows, held):
         row.update(h)
+    lone = [r for r in rows if r.get("device_kernels_per_op", 1) != 1]
+    if lone:
+        raise AssertionError(f"an ops call ran more than its kernel: {lone}")
     emit({"phase": "ops", "launches": launched, "cases": rows})
     return launched, rows
 
@@ -598,6 +639,7 @@ def attention_row(a):
            **a["kw"], "dtype": str(a["dtype"]),
            "allowed_pairs_per_head": pairs, "ms": ms_kernel,
            "plain_ms": plain, **bound(n_bytes, flops, peak),
+           "sfu_ms": sfu_ms(pairs * B * H),
            "tflop_per_s": flops / ms_kernel / 1e9,
            "tb_per_s": n_bytes / ms_kernel / 1e9,
            "library_ms": None, "library_note": "none: SDPA has no softcap"}
@@ -625,28 +667,65 @@ def attention_row(a):
     return row
 
 
-def scan_check(scan, out):
+def scan_check(case, scan, out):
     x, dt, A, Bs, Cs, D = scan
     want = ref.mamba_scan_ref(x, dt, A, Bs, Cs)[0] + x * D
-    return closeness("falcon-mamba-7b", out, want, 1e-4, 1e-4)
+    return closeness(case, out, want, 1e-4, 1e-4)
 
 
-def scan_row(scan):
+def device_kernels(fn, calls: int = 1):
+    """(name, device ms) of each device kernel that `calls` calls of `fn`
+    run, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Median device time of the one kernel `fn` launches, by
+    torch.profiler: the kernel alone, without the gaps between launches
+    that CUDA events over back-to-back calls include."""
+    times = [t for _, t in device_kernels(fn, calls)]
+    return float(np.median(times)) if times else None
+
+
+def scan_row(case, scan):
+    """The scan kernel's time as selective_scan_fused launches it (with
+    the skip term), the whole op's, and their floors."""
     x, dt, A, Bs, Cs, D = scan
     y = torch.empty_like(x)
-    ms_kernel = cuda_ms(lambda: ms._launch(x, dt, A, Bs, Cs, y), launches=5,
-                        warmup=3)
+    ms_kernel = cuda_ms(lambda: ms._launch(x, dt, A, Bs, Cs, y, D),
+                        launches=5, warmup=3)
+    dev_ms = device_ms(lambda: ms._launch(x, dt, A, Bs, Cs, y, D), calls=5)
+    op_ms = cuda_ms(lambda: ops.selective_scan_fused(*scan), launches=5,
+                    warmup=3)
+    kernels = [k for k, _ in device_kernels(
+        lambda: ops.selective_scan_fused(*scan))]
     plain = cuda_ms(lambda: ref.mamba_scan_ref(x, dt, A, Bs, Cs), launches=1,
                     reps=3, warmup=1)
     B, S, di = x.shape
     N = A.shape[1]
-    # per (b, t, d, n): dt*A, exp, a*h + b (2), dx*B, y += C*h (2); dt*x
-    flops = 7 * B * S * di * N + B * S * di
-    n_bytes = 4 * (3 * x.numel() + A.numel() + Bs.numel() + Cs.numel())
-    return {"case": "falcon-mamba-7b", "entry": "selective_scan_fused",
+    # per (b, t, d, n): dt*A, exp, a*h + b (2), dx*B, y += C*h (2); per
+    # (b, t, d): dt*x and the skip term's FMA (2)
+    flops = 7 * B * S * di * N + 3 * B * S * di
+    n_bytes = 4 * (3 * x.numel() + A.numel() + Bs.numel() + Cs.numel()
+                   + D.numel())
+    return {"case": case, "entry": "selective_scan_fused",
             "kernel": "mamba_scan", "x": list(x.shape), "A": list(A.shape),
-            "dtype": "torch.float32", "ms": ms_kernel, "plain_ms": plain,
-            **bound(n_bytes, flops, FP32_FLOPS), "library_ms": None,
+            "dtype": "torch.float32", "ms": ms_kernel, "device_ms": dev_ms,
+            "op_ms": op_ms,
+            "device_kernels_per_op": len(kernels),
+            "device_kernel_names": sorted(set(k[:60] for k in kernels)),
+            "plain_ms": plain, **bound(n_bytes, flops, FP32_FLOPS),
+            "sfu_ms": sfu_ms(B * S * di * N),
+            "tb_per_s": n_bytes / ms_kernel / 1e9, "library_ms": None,
             "library_note": "none"}
 
 
@@ -667,6 +746,7 @@ def conv_row(case, tree, p, out):
     args = (*(t.data_ptr() for t in (*tree, *weights, dst)),
             B, N, Fd, H, torch.cuda.current_stream().cuda_stream)
     ms_kernel = cuda_ms(lambda: fn(*args), launches=200)
+    dev_ms = device_ms(lambda: fn(*args))
     plain = cuda_ms(lambda: ref.tree_conv_batch_ref(*tree, *weights),
                     launches=20)
     n_bytes = 4 * (feat.numel() + left.numel() + right.numel() +
@@ -674,9 +754,9 @@ def conv_row(case, tree, p, out):
     flops = 2 * 3 * float(mask.sum()) * Fd * H      # FMAs of the real nodes
     return {"case": case, "entry": "tree_conv_batch", "kernel": "tree_conv",
             "shape": [B, N, Fd, H], "dtype": "torch.float32",
-            "ms": ms_kernel, "plain_ms": plain,
-            **bound(n_bytes, flops, FP32_FLOPS), "library_ms": None,
-            "library_note": "none"}
+            "ms": ms_kernel, "device_ms": dev_ms, "plain_ms": plain,
+            **bound(n_bytes, flops, FP32_FLOPS), "sfu_ms": 0.0,
+            "library_ms": None, "library_note": "none"}
 
 
 def main() -> int:

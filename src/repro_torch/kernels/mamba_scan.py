@@ -4,15 +4,21 @@ plain PyTorch version is in `ref`).
 Replaces `repro/kernels/mamba_scan.py::mamba_scan` (the Pallas TPU kernel
 `_kernel`): h_t = exp(dt_t·A)⊙h_{t−1} + (dt_t·x_t)⊗B_t from h = 0 and
 y_t = Σ_n C_t[n]·h_t[:, n]; x/dt (B, S, di), A (di, N), Bs/Cs (B, S, N)
--> y (B, S, di). Only y is returned, as the Pallas kernel does.
+-> y (B, S, di). Only y is returned, as the Pallas kernel does. Given
+`D` (di,), the kernel adds the Mamba block's skip term x·D in its
+write-back, so `ops.selective_scan_fused` is one launch.
 
-What bounds it on an H100: device memory. At falcon-mamba-7b's widths a
-call reads x and dt and writes y, 201 MB; its 268M exps and ~1.9 GFLOP
-take half as long at the fp32 rate. The scan runs sequentially in time in
-fp32, as the TPU kernel's does; each channel's N states are split over
-four lanes so that the card has enough warps, and each time step's B_t
-and C_t are staged once in shared memory for all of a block's channels
-(csrc/mamba_scan.cu says more).
+What bounds it on an H100: device memory and the special-function
+units. At falcon-mamba-7b's widths a call reads x and dt and writes y,
+201 MB, and takes 268M exps, each about as long on the card's
+special-function units as the bytes on its memory. The scan runs
+sequentially in time in fp32, as the TPU kernel's does. Each channel's N
+states are split over lanes (8 at N = 16) so that the SMs fill; each
+lane sums its states' share of y_t for a group of steps and one
+reduce-scatter over the lanes finishes them (`ref.mamba_scan_lanes_ref`
+is that order of sums); h is rounded op by op as the plain version
+rounds it; x, dt, B and C arrive in shared memory by
+asynchronous copies, chunks ahead (csrc/mamba_scan.cu says more).
 
 `mamba_scan` runs its plain version, y of `ref.mamba_scan_ref`, for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
@@ -31,7 +37,7 @@ STATES = (4, 8, 16, 32)   # the kernel's state sizes N
 launches = 0              # kernel launches (not plain-version calls)
 
 
-def _check(x, dt, A, Bs, Cs):
+def _check(x, dt, A, Bs, Cs, D=None):
     if x.dim() != 3 or A.dim() != 2:
         raise ValueError(f"x must be (B, S, di) and A (di, N), got "
                          f"{tuple(x.shape)} and {tuple(A.shape)}")
@@ -39,7 +45,8 @@ def _check(x, dt, A, Bs, Cs):
     N = A.shape[1]
     for t, name, shape in ((x, "x", (B, S, di)), (dt, "dt", (B, S, di)),
                            (A, "A", (di, N)), (Bs, "Bs", (B, S, N)),
-                           (Cs, "Cs", (B, S, N))):
+                           (Cs, "Cs", (B, S, N)),
+                           *(() if D is None else ((D, "D", (di,)),))):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if t.dtype != torch.float32:
@@ -55,38 +62,42 @@ def _library():
     from repro_torch.kernels import build
     fn = build.load("mamba_scan").mamba_scan_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x, dt, A, Bs, Cs, y) -> int:
-    """Launch the kernel on checked CUDA tensors; returns the CUDA error
-    code (0 = launched)."""
+def _launch(x, dt, A, Bs, Cs, y, D=None) -> int:
+    """Launch the kernel on checked CUDA tensors (D may be None); returns
+    the CUDA error code (0 = launched)."""
     B, S, di = x.shape
     with torch.cuda.device(x.device):
-        return _library()(*(t.data_ptr() for t in (x, dt, A, Bs, Cs, y)),
+        return _library()(*(t.data_ptr() for t in (x, dt, A, Bs, Cs)),
+                          None if D is None else D.data_ptr(), y.data_ptr(),
                           B, S, di, A.shape[1],
                           torch.cuda.current_stream().cuda_stream)
 
 
-def mamba_scan(x, dt, A, Bs, Cs):
-    """Selective scan. x/dt (B, S, di), A (di, N), Bs/Cs (B, S, N), all
-    float32, contiguous and on one device. Returns y (B, S, di) float32."""
+def mamba_scan(x, dt, A, Bs, Cs, D=None):
+    """Selective scan. x/dt (B, S, di), A (di, N), Bs/Cs (B, S, N) and,
+    if given, the skip weights D (di,), all float32, contiguous and on one
+    device. Returns y (B, S, di) float32, plus x·D if D is given."""
     global launches
-    _check(x, dt, A, Bs, Cs)
+    _check(x, dt, A, Bs, Cs, D)
     if x.device.type == "cpu":
-        return ref.mamba_scan_ref(x, dt, A, Bs, Cs)[0]
+        y = ref.mamba_scan_ref(x, dt, A, Bs, Cs)[0]
+        return y if D is None else y + x * D
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if A.shape[1] not in STATES:
         raise ValueError(f"the kernel takes N in {STATES}, got N={A.shape[1]}")
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, Bs, Cs)):
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bs, Cs, D)):
         raise NotImplementedError("the mamba_scan kernel has no backward")
     y = torch.empty_like(x)
-    err = _launch(x, dt, A, Bs, Cs, y)
+    err = _launch(x, dt, A, Bs, Cs, y, D)
     if err != 0:
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
     launches += 1

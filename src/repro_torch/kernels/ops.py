@@ -23,9 +23,10 @@ def mha_flash(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
 
 
 def selective_scan_fused(x, dt, A, Bs, Cs, D_skip):
-    """Mamba block core: y + x * D_skip in fp32; h_last is not returned,
-    as the Pallas kernel returns none."""
-    return mamba_scan(x, dt, A, Bs, Cs) + x.float() * D_skip
+    """Mamba block core: y + x * D_skip in fp32, D_skip (di,); h_last is
+    not returned, as the Pallas kernel returns none. One launch: the
+    kernel adds the skip term as it writes y."""
+    return mamba_scan(x, dt, A, Bs, Cs, D=D_skip)
 
 
 def tree_conv_batch(feat, left, right, mask, params):

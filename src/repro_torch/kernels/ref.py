@@ -6,8 +6,10 @@ any device.
 reference oracles' signatures and semantics (the allclose ground truth);
 `flash_attention_ref` also takes GQA k/v, as the kernel does.
 `flash_attention_split_ref` is the attention decode kernel's algorithm
-(key splits, then a log-sum-exp merge), for the tests to hold to the
-reference; no wrapper runs it.
+(key splits, then a log-sum-exp merge), and `mamba_scan_lanes_ref` the
+scan kernel's order of sums (states split over lanes, then a butterfly
+over the lanes), for the tests to hold to the reference; no wrapper runs
+them.
 `tree_conv_batch_ref` and `tree_cnn_fused_ref` are the plain versions of
 the two tree kernels. They read a zero row for a child index outside
 [0, N), as the reference's Pallas kernels' one-hots do, where the oracle
@@ -134,6 +136,36 @@ def mamba_scan_ref(x, dt, A, Bs, Cs, h0=None):
         h = a * h + b
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def mamba_scan_lanes_ref(x, dt, A, Bs, Cs, *, lanes):
+    """The scan kernel's order of sums: the N states of a channel are split
+    over `lanes` lanes, N / lanes consecutive states each; a lane sums its
+    states' C_t[n]·h_t[n] in order, and the lanes' partial sums are added
+    pairwise, lane l with lane l + lanes/2 first, then l + lanes/4, ...
+    (the kernel's reduce-scatter). The recurrence itself is the sequential
+    one of `mamba_scan_ref`. Returns y (B, S, di), fp32."""
+    B, S, di = x.shape
+    N = A.shape[1]
+    if lanes < 1 or N % lanes or lanes & (lanes - 1):
+        raise ValueError(f"lanes must be a power of two dividing N={N}, "
+                         f"got {lanes}")
+    A = A.float()
+    xf, dtf, Bf, Cf = x.float(), dt.float(), Bs.float(), Cs.float()
+    h = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        h = torch.exp(dtf[:, t, :, None] * A) * h \
+            + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        terms = (h * Cf[:, t, None, :]).reshape(B, di, lanes, N // lanes)
+        part = terms[..., 0]
+        for j in range(1, N // lanes):
+            part = part + terms[..., j]
+        while part.shape[-1] > 1:
+            half = part.shape[-1] // 2
+            part = part[..., :half] + part[..., half:]
+        ys.append(part[..., 0])
+    return torch.stack(ys, dim=1)
 
 
 def _children(h, idx):

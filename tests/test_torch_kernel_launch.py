@@ -243,6 +243,40 @@ def test_mamba_scan_one_launch_per_call(cuda, B, S, di, N):
     _close(out, want, 1e-4)
 
 
+@pytest.mark.parametrize("B,with_D", [(1, False), (3, True)])
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+@pytest.mark.parametrize("S", [1, 31, 33, 2048])
+def test_mamba_scan_edges(cuda, S, N, B, with_D):
+    """Time steps around the kernel's 32-step chunks, every state size,
+    d_inner = 200 (not a multiple of the block's 32 channels), with and
+    without the skip weights D."""
+    x, dt, A, Bs, Cs, D = (t.to(cuda) for t in _scan(B, S, 200, N, seed=S))
+    D = D if with_D else None
+    with torch.inference_mode():
+        before = ms.launches
+        out = ms.mamba_scan(x, dt, A, Bs, Cs, D=D)
+        assert ms.launches == before + 1
+        want = ref.mamba_scan_ref(x, dt, A, Bs, Cs)[0]
+        if with_D:
+            want = want + x * D
+    torch.cuda.synchronize()
+    _close(out, want, 1e-4)
+
+
+def test_mamba_scan_sums_in_the_kernels_order(cuda):
+    """The kernel against `ref.mamba_scan_lanes_ref` at its own order of
+    sums (8 lanes at N = 16), the order the CPU tests hold to the Pallas
+    kernel, to 1e-5 over 2048 steps of slow decay: the kernel rounds h as
+    the plain version does, so its h does not drift."""
+    x, dt, A, Bs, Cs, _ = (t.to(cuda) for t in _scan(1, 2048, 96, 16,
+                                                       seed=2048))
+    with torch.inference_mode():
+        out = ms.mamba_scan(x, dt, A, Bs, Cs)
+        want = ref.mamba_scan_lanes_ref(x, dt, A, Bs, Cs, lanes=8)
+    torch.cuda.synchronize()
+    _close(out, want, 1e-5)
+
+
 def _conv_params(F, H, seed=0):
     rng = np.random.default_rng(seed)
     p = {w: torch.from_numpy(rng.standard_normal((F, H)).astype(np.float32)
@@ -267,6 +301,48 @@ def test_tree_conv_one_launch_per_call(cuda, B, N, F, H):
     torch.cuda.synchronize()
     _close(out, want, 1e-5)
     assert not out[-1].any()                   # an all-masked tree
+
+
+@pytest.mark.parametrize("N", [1, 17, 48, 64])
+@pytest.mark.parametrize("H", [1, 32, 96, 128])
+@pytest.mark.parametrize("F", [1, 26, 96, 512])
+def test_tree_conv_edges(cuda, F, H, N):
+    """Input widths from 1 to the kernel's 512 (two weight tiles), output
+    widths around its 32-channel blocks, node counts around its 16-node
+    blocks; children outside [0, N) and an all-masked tree."""
+    feat, left, right, mask = (t.to(cuda) for t in _inputs(3, N, F, seed=F))
+    p = {w: t.to(cuda) for w, t in _conv_params(F, H, seed=H).items()}
+    with torch.inference_mode():
+        before = tree_conv.tree_conv_launches
+        out = tree_conv.tree_conv(feat, left, right, mask, p["wr"], p["wl"],
+                                  p["wrt"], p["b"])
+        assert tree_conv.tree_conv_launches == before + 1
+        want = ref.tree_conv_batch_ref(feat, left, right, mask, p["wr"],
+                                       p["wl"], p["wrt"], p["b"])
+    torch.cuda.synchronize()
+    _close(out, want, 1e-5)
+    assert not out[-1].any()
+
+
+def test_tree_conv_unaligned_rows(cuda):
+    """Inputs and weights that start 4 bytes past a 16-byte boundary take
+    the kernel's narrower copies."""
+    feat, left, right, mask = (t.to(cuda) for t in _inputs(4, 48, 96))
+    p = {w: t.to(cuda) for w, t in _conv_params(96, 96).items()}
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    feat, p = shifted(feat), {w: shifted(t) for w, t in p.items()}
+    with torch.inference_mode():
+        out = tree_conv.tree_conv(feat, left, right, mask, p["wr"], p["wl"],
+                                  p["wrt"], p["b"])
+        want = ref.tree_conv_batch_ref(feat, left, right, mask, p["wr"],
+                                       p["wl"], p["wrt"], p["b"])
+    torch.cuda.synchronize()
+    _close(out, want, 1e-5)
 
 
 def test_ops_never_reach_a_plain_version_on_the_card(cuda, monkeypatch):

@@ -101,6 +101,57 @@ def test_mamba_scan_plain_matches_pallas(B, S, di, N, chunk, bd):
     _assert_close(out, want, 1e-4)
 
 
+@pytest.mark.parametrize("N,lanes", [(16, 1), (16, 2), (16, 4), (16, 8),
+                                     (16, 16), (4, 4), (8, 4), (32, 16)])
+def test_mamba_scan_lanes_plain_matches_pallas(N, lanes):
+    """The scan kernel's order of sums (states split over `lanes` lanes,
+    then the butterfly over the lanes) against the Pallas kernel, at every
+    lane count the kernel can take and at one lane (the sequential sum)."""
+    args = _scan_inputs(2, 70, 40, N, seed=N * 100 + lanes)
+    want = jax_mamba_scan(*map(jnp.asarray, args), chunk=32, block_d=40,
+                          interpret=True)
+    out = ref.mamba_scan_lanes_ref(*map(torch.from_numpy, args), lanes=lanes)
+    _assert_close(out, want, 1e-4)
+
+
+@pytest.mark.parametrize("lanes", [0, 3, 32])
+def test_mamba_scan_lanes_ref_rejects_other_lane_counts(lanes):
+    """Lane counts must be powers of two that divide N (here 16)."""
+    with pytest.raises(ValueError, match="lanes"):
+        ref.mamba_scan_lanes_ref(*map(torch.from_numpy,
+                                      _scan_inputs(1, 4, 8, 16, seed=0)),
+                                 lanes=lanes)
+
+
+@pytest.mark.parametrize("B,S,di,N", [(1, 33, 40, 4), (3, 31, 24, 16),
+                                      (2, 1, 16, 32)])
+def test_selective_scan_fused_skip_matches_reference_ops(B, S, di, N):
+    """The skip term the kernel now adds (mamba_scan's D) against
+    repro.kernels.ops.selective_scan_fused, and mamba_scan without D
+    against the Pallas kernel alone."""
+    args = _scan_inputs(B, S, di, N, seed=B * 100 + S + di + N)
+    D = np.random.default_rng(N).standard_normal(di).astype(np.float32)
+    want = jops.selective_scan_fused(*map(jnp.asarray, args), jnp.asarray(D),
+                                     chunk=16, interpret=True)
+    before = ms.launches
+    targs = list(map(torch.from_numpy, args))
+    out = ops.selective_scan_fused(*targs, torch.from_numpy(D))
+    _assert_close(out, want, 1e-4)
+    _assert_close(ms.mamba_scan(*targs, D=torch.from_numpy(D)), want, 1e-4)
+    _assert_close(ms.mamba_scan(*targs),
+                  jax_mamba_scan(*map(jnp.asarray, args), chunk=16,
+                                 interpret=True), 1e-4)
+    assert ms.launches == before
+
+
+def test_mamba_scan_checks_the_skip_weights():
+    targs = list(map(torch.from_numpy, _scan_inputs(1, 8, 16, 4, seed=1)))
+    with pytest.raises(ValueError, match="D must have shape"):
+        ms.mamba_scan(*targs, D=torch.zeros(8))
+    with pytest.raises(TypeError, match="D must be"):
+        ms.mamba_scan(*targs, D=torch.zeros(16, dtype=torch.float64))
+
+
 # ---------------------------------------------------------------- tree conv
 def _tree_inputs(Bt, N, F, H, seed, out_of_range=False):
     rng = np.random.default_rng(seed)
