@@ -11,13 +11,33 @@ Phases, each printing one JSON line:
            the serving shapes (B=8 and B=5, N in {16, 32, 48, 64}, F=26,
            H=96; the trained step-18 weights and random ones; all-masked
            lanes; out-of-range child indices), with its time, the plain
-           version's time and the card's bound for the same work;
+           version's time and the card's bound for the same work; then the
+           encoder's backward kernel against its plain version
+           (`ref.tree_cnn_fused_bwd_ref`) at the PPO shapes (24 and 32
+           trees, N=48), at B=8 and B=5 over N in {16, 32, 48, 64} on
+           step-18 and random weights, and on trees with tied maxima:
+           the 12 weight grads, gfeat and gmask each within BWD_ATOL +
+           BWD_RTOL * |plain|, every case checked before any fails; the
+           same inputs twice give bitwise-equal gradients; its time by
+           CUDA events beside its bound and the plain version's;
   serve    the repo's default deployment (JOB-like db at scale 0.25, the
            16-query test split, step-18 weights, 8 async lanes, a 48-query
            open-loop stream at 2 qps) served on the card through the
            kernels and again on the CPU through the plain versions: the
            completions must be identical and every act_batch on the card
            must have launched the encoder kernel once;
+  train    the training path at the same deployment: step 18's full
+           state (parameters and both AdamW states), `train_agent(...,
+           episodes=TRAIN_EPISODES, batch_size=8, seed=0)` lockstep on the
+           card and again on the CPU through the plain versions. The
+           first episode-batch's actions must be equal, the first
+           update's losses within TRAIN_LOSS_RTOL, every leaf finite, and
+           every PPO update on the card must have launched the forward
+           kernel 1 + 2 * epochs times and called the backward 2 * epochs
+           times (4 * epochs launches: per-tree and summing kernel);
+           then two serial episodes on the card (`act(explore=True)`), a
+           Checkpointer save of the trained state that restores to equal
+           leaves;
   ops      the `kernels.ops` path at full model widths from the reference's
            configs (src/repro/configs): `mha_flash` at qwen3-8b prefill,
            decode, a 4-query suffix and fp32 and at gemma2-27b's
@@ -40,6 +60,12 @@ Phases, each printing one JSON line:
            `selective_scan_fused` call (`op_ms`) and count its device
            kernels under torch.profiler, which must be one.
 
+After the ops phase, the `train_profile` line: the backward kernel's
+device time by torch.profiler at the PPO shapes, and one PPO update
+under torch.profiler (device busy time by kernel, idle share). These
+readings come after the ops phase's own, which then are the first in
+the process.
+
 With `--profile`, one more card serve runs under `torch.profiler`: its
 line gives the device's busy time by kernel and its idle share of the
 wall time.
@@ -54,6 +80,7 @@ import argparse
 import functools
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -64,11 +91,15 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.checkpoint import (load_reference_checkpoint,  # noqa: E402
+from repro_torch.checkpoint import (Checkpointer, agent_state,  # noqa: E402
+                                    agent_state_from_numpy,
+                                    install_agent_state,
+                                    load_reference_checkpoint, params_finite,
                                     params_from_numpy)
 from repro_torch.core.agent import (AgentConfig, AqoraAgent,  # noqa: E402
                                     _node_bucket)
 from repro_torch.core.encoding import WorkloadMeta, encode_state  # noqa: E402
+from repro_torch.core.train_loop import train_agent  # noqa: E402
 from repro_torch.kernels import build, ops, ref, tree_conv  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
@@ -78,6 +109,7 @@ from repro_torch.sql import datagen, workloads  # noqa: E402
 from repro_torch.sql.cbo import Estimator  # noqa: E402
 from repro_torch.sql.executor import AdaptiveRun  # noqa: E402
 from repro_torch.sql.plans import syntactic_plan  # noqa: E402
+from repro_torch.tree import flatten  # noqa: E402
 
 CKPT = ROOT / "results" / "aqora_ckpt" / "step_00000018"
 TOL = 1e-4                 # the reference's own fused-vs-jnp tolerance
@@ -86,6 +118,11 @@ FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM bf16 tensor cores, dense
 SFU_PER_CLOCK = 16         # exps per clock on each SM (special-function units)
 N_LANES = 8
+# the backward kernel's weight grads sum over every node and tree in
+# another order than the plain version's autograd
+BWD_ATOL, BWD_RTOL = 1e-5, 1e-4
+TRAIN_EPISODES = 32        # 4 lockstep episode-batches of 8: 4 PPO updates
+TRAIN_LOSS_RTOL = 1e-4     # first update's losses, card against CPU
 
 
 def emit(obj) -> None:
@@ -283,9 +320,142 @@ def phase_kernels(db, wl, meta, ckpt_tree):
     timing = kernel_timing(*real, trained, launches=500)
     timing["plain_ms"] = cuda_ms(lambda: ref.tree_cnn_fused_ref(
         *real, trained), launches=100)
+    bwd_rows, bwd_worst, bwd_timing = backward_cases(rng, weights, real)
     emit({"phase": "kernels", "tolerance": TOL, "max_abs_err": worst,
-          "cases": rows, "tree_cnn_fused": timing})
-    return worst, timing
+          "cases": rows, "tree_cnn_fused": timing,
+          "backward": {"atol": BWD_ATOL, "rtol": BWD_RTOL,
+                       "max_abs_err": bwd_worst, "cases": bwd_rows,
+                       "bitwise_repeatable": True,
+                       "timing": {k: {f: v for f, v in t.items()
+                                      if f != "launch"}
+                                  for k, t in bwd_timing.items()}}})
+    return worst, timing, bwd_worst, bwd_timing
+
+
+def tied_batch(rng, B, N, F):
+    """Random trees in which nodes 1 and 2 are one node twice (the same
+    features and children), scaled up so that they hold channel maxima
+    together."""
+    feat, left, right, mask = random_batch(rng, B, N, F)
+    feat[:, 1] *= 10.0
+    feat[:, 2] = feat[:, 1]
+    left[:, 2], right[:, 2] = left[:, 1], right[:, 1]
+    mask[:-1, 1:3] = 1.0
+    return feat, left, right, mask
+
+
+def tied_channels(feat, left, right, mask, params) -> int:
+    """(tree, channel) pairs whose max-pool has more than one maximum, by
+    the plain version's layers."""
+    m = mask.unsqueeze(-1)
+
+    def layer(h, p):
+        return ref.tree_layer(h, left, right, m, *(p[w] for w in
+                                                   tree_conv.WEIGHTS))
+    h1 = layer(feat * m, params["conv1"])
+    h2 = layer(h1, params["conv2"])
+    h3 = torch.where(m > 0, layer(h2, params["conv3"]) + h2, -torch.inf)
+    top = h3.amax(dim=1, keepdim=True)
+    return int((((h3 == top) & (m > 0)).sum(dim=1) > 1).sum())
+
+
+def backward_check(name, params, batch, g):
+    """The backward kernel (gfeat and gmask asked for) against its plain
+    version on one case: each of the 14 outputs within BWD_ATOL +
+    BWD_RTOL * |plain|."""
+    gf, gm, gp = tree_conv.tree_cnn_fused_backward(*batch, params, g)
+    wf, wm, wp = ref.tree_cnn_fused_bwd_ref(*batch, params, g)
+    parts = [closeness("gfeat", gf, wf, BWD_ATOL, BWD_RTOL),
+             closeness("gmask", gm, wm, BWD_ATOL, BWD_RTOL)]
+    parts += [closeness(f"{l}.{w}", gp[l][w], wp[l][w], BWD_ATOL, BWD_RTOL)
+              for l in tree_conv.LAYERS for w in tree_conv.WEIGHTS]
+    dead = batch[3].sum(dim=1) == 0
+    zero_dead = not (gf[dead].any() or gm[dead].any())
+    return {"case": name, "shape": list(batch[0].shape),
+            "ok": all(p["ok"] for p in parts) and zero_dead,
+            "all_masked_trees_zero": zero_dead,
+            "max_abs_err": max(p.get("max_abs_err", float("inf"))
+                               for p in parts),
+            "limit_share": max(p.get("limit_share", float("inf"))
+                               for p in parts),
+            "outside": [p["case"] for p in parts if not p["ok"]]}
+
+
+def backward_cases(rng, weights, real):
+    """Every backward case checked, then one error naming each case
+    outside its limit; then the same inputs twice, bit for bit; then the
+    kernel's time at the actor's and the critic's PPO shapes."""
+    F, H = real[0].shape[2], weights["step18"]["conv1"]["wr"].shape[1]
+    cases = [(f"step18/ppo-actor/B24/N48", weights["step18"],
+              to_cuda(random_batch(rng, 24, 48, F))),
+             (f"step18/ppo-critic/B32/N48", weights["step18"],
+              to_cuda(random_batch(rng, 32, 48, F))),
+             ("step18/serving", weights["step18"], real)]
+    for wname, params in weights.items():
+        for B in (8, 5):
+            for N in (16, 32, 48, 64):
+                cases.append((f"{wname}/B{B}/N{N}", params,
+                              to_cuda(random_batch(rng, B, N, F))))
+        cases.append((f"{wname}/tied/B8/N48", params,
+                      to_cuda(tied_batch(rng, 8, 48, F))))
+    rows = []
+    for name, params, batch in cases:
+        g = torch.from_numpy(rng.standard_normal(
+            (batch[0].shape[0], H)).astype(np.float32)).cuda()
+        row = backward_check(name, params, batch, g)
+        if "tied" in name:
+            row["tied_channels"] = tied_channels(*batch, params)
+        rows.append(row)
+    torch.cuda.synchronize()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"tree_cnn_fused backward disagrees: {bad}")
+    if any(r["tied_channels"] == 0 for r in rows if "tied" in r["case"]):
+        raise AssertionError(f"a tied case has no tied maxima: {rows}")
+
+    name, params, batch = cases[0]
+    g = torch.from_numpy(rng.standard_normal(
+        (batch[0].shape[0], H)).astype(np.float32)).cuda()
+    runs = [tree_conv.tree_cnn_fused_backward(*batch, params, g)
+            for _ in range(2)]
+    outs = [[r[0], r[1]] + [r[2][l][w] for l in tree_conv.LAYERS
+                            for w in tree_conv.WEIGHTS] for r in runs]
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("the backward kernel is not bitwise repeatable")
+    timing = {c[0]: backward_timing(*c[2], c[1]) for c in cases[:2]}
+    return rows, max(r["max_abs_err"] for r in rows), timing
+
+
+def backward_timing(feat, left, right, mask, params):
+    """The backward kernel's time as the PPO update calls it (weight
+    grads only), by CUDA events over raw launches and by torch.profiler
+    (its two device kernels, in `phase_late_profiles`), beside the plain
+    version's and the card's
+    bound: each input read once, the weight grads written once, and the
+    FMAs the real nodes need (the three layers' recompute, their weight
+    gradients and the input gradients of layers 3 and 2)."""
+    B, N, Fd = feat.shape
+    H = params["conv1"]["wr"].shape[1]
+    g = torch.ones((B, H), device=feat.device)
+    E = sum(t.numel() for p in params.values() for t in p.values())
+    partial = torch.empty((B, E), device=feat.device)
+    flat = torch.empty(E, device=feat.device)
+    ptrs = [t.data_ptr() for t in (feat, left, right, mask)]
+    for lname in tree_conv.LAYERS:
+        ptrs += [params[lname][w].data_ptr() for w in tree_conv.WEIGHTS]
+    args = (*ptrs, g.data_ptr(), partial.data_ptr(), flat.data_ptr(), 0, 0,
+            B, N, Fd, H, torch.cuda.current_stream().cuda_stream)
+    fn = tree_conv._bwd_library()
+    kernel_ms = cuda_ms(lambda: fn(*args), launches=200)
+    plain = cuda_ms(lambda: ref.tree_cnn_fused_bwd_ref(
+        feat, left, right, mask, params, g), launches=20)
+    real_nodes = float(mask.sum())
+    flops = 2 * real_nodes * H * (6 * Fd + 18 * H)
+    n_bytes = 4 * (feat.numel() + left.numel() + right.numel() + mask.numel()
+                   + g.numel() + 2 * E)
+    return {"shape": [B, N, Fd, H], "real_nodes": real_nodes, "ms": kernel_ms,
+            "plain_ms": plain, **bound(n_bytes, flops, FP32_FLOPS),
+            "launch": lambda: fn(*args)}
 
 
 def phase_serve(db, wl, meta, params):
@@ -379,6 +549,179 @@ def phase_serve(db, wl, meta, params):
           "identical_to_cpu": True, "max_logp_diff": logp_diff,
           "min_top2_margin": min(margins)})
     return launches
+
+
+def leaves_of(agent):
+    return {k: v.detach().cpu().numpy() for k, v in
+            flatten(agent_state(agent))}
+
+
+def phase_train(db, wl, meta, ckpt_tree):
+    """The training path from step 18's full state, on the card through
+    the kernels and on the CPU through the plain versions."""
+    state = agent_state_from_numpy(ckpt_tree)
+    agents = {}
+    for dev in (None, "cpu"):                 # None: the default, CUDA
+        agent = AqoraAgent(meta, AgentConfig(), seed=0, device=dev)
+        install_agent_state(agent, state)
+        agents["card" if dev is None else "cpu"] = agent
+    gpu, cpu = agents["card"], agents["cpu"]
+    epochs = gpu.cfg.ppo_epochs
+
+    updates, act_s, last = [], [], {}
+    ppo_inner, act_inner = gpu.ppo_update_batch, gpu.act_batch
+
+    def ppo_update_batch(trajs):
+        before = counts()
+        b0 = tree_conv.tree_cnn_fused_bwd_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = ppo_inner(trajs)
+        torch.cuda.synchronize()
+        updates.append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "forward_launches": counts()["tree_cnn_fused"]
+            - before["tree_cnn_fused"],
+            "backward_launches": tree_conv.tree_cnn_fused_bwd_launches - b0,
+            "actor_states": sum(len(t.actions) for t in trajs),
+            "critic_states": sum(min(len(t.states), gpu.cfg.max_steps + 1)
+                                 for t in trajs), **m})
+        last["trajs"] = trajs
+        return m
+
+    def act_batch(*a, **k):
+        t0 = time.perf_counter()
+        out = act_inner(*a, **k)
+        act_s.append(time.perf_counter() - t0)
+        return out
+    gpu.ppo_update_batch, gpu.act_batch = ppo_update_batch, act_batch
+
+    fa.launches = ms.launches = 0
+    tree_conv.tree_conv_launches = tree_conv.tree_cnn_fused_launches = 0
+    tree_conv.tree_cnn_fused_bwd_launches = 0
+    t0 = time.perf_counter()
+    _, logs = train_agent(db, wl, episodes=TRAIN_EPISODES, batch_size=N_LANES,
+                          seed=0, agent=gpu)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(counts(),
+                    tree_cnn_fused_bwd=tree_conv.tree_cnn_fused_bwd_launches)
+    t0 = time.perf_counter()
+    _, cpu_logs = train_agent(db, wl, episodes=TRAIN_EPISODES,
+                              batch_size=N_LANES, seed=0, agent=cpu)
+    cpu_wall = time.perf_counter() - t0
+
+    first = [(l.query, l.actions, l.latency, l.failed) for l in logs[:N_LANES]]
+    cpu_first = [(l.query, l.actions, l.latency, l.failed)
+                 for l in cpu_logs[:N_LANES]]
+    if first != cpu_first:
+        raise AssertionError(f"first batch differs: card {first} cpu "
+                             f"{cpu_first}")
+    loss_rel = {k: abs(getattr(logs[0], k) - getattr(cpu_logs[0], k))
+                / max(abs(getattr(cpu_logs[0], k)), 1e-12)
+                for k in ("actor_loss", "critic_loss")}
+    if max(loss_rel.values()) > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"first update's losses differ: {loss_rel}")
+    bad = [u for u in updates if u["forward_launches"] != 1 + 2 * epochs
+           or u["backward_launches"] != 4 * epochs]
+    if bad or not updates:
+        raise AssertionError(f"launches per PPO update: {updates}")
+    leaves = leaves_of(gpu)
+    if not all(np.isfinite(v).all() for v in leaves.values()) or \
+            not params_finite(gpu):
+        raise AssertionError("a leaf of the trained state is not finite")
+    same_actions = sum(a.actions == b.actions for a, b in zip(logs, cpu_logs))
+
+    # two serial episodes on the card: act(explore=True) and ppo_update
+    serial = gpu.clone(seed=1)
+    f0 = tree_conv.tree_cnn_fused_launches
+    _, serial_logs = train_agent(db, wl, episodes=2, batch_size=1, seed=1,
+                                 agent=serial)
+    serial_launches = tree_conv.tree_cnn_fused_launches - f0
+    if not all(np.isfinite(l.actor_loss) for l in serial_logs) or \
+            serial_launches == 0 or not params_finite(serial):
+        raise AssertionError(f"serial episodes: {serial_logs}")
+
+    # a checkpoint of the card's trained state restores to equal leaves
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    if ckpt_dir.exists():
+        shutil.rmtree(ckpt_dir)
+    ckpt = Checkpointer(ckpt_dir)
+    ckpt.save(TRAIN_EPISODES, agent_state(gpu),
+              extra={"episodes": TRAIN_EPISODES})
+    restored, step, _ = ckpt.restore(agent_state(gpu))
+    back = AqoraAgent(meta, AgentConfig(), seed=0, device=None)
+    install_agent_state(back, restored)
+    back_leaves = leaves_of(back)
+    if step != TRAIN_EPISODES or set(back_leaves) != set(leaves) or not all(
+            np.array_equal(back_leaves[k], v) and back_leaves[k].dtype ==
+            v.dtype for k, v in leaves.items()):
+        raise AssertionError("checkpoint did not restore the trained state")
+
+    emit({"phase": "train", "episodes": TRAIN_EPISODES,
+          "batch_size": N_LANES, "ppo_updates": len(updates),
+          "ppo_epochs": epochs, "wall_s": wall, "cpu_wall_s": cpu_wall,
+          "ppo_update_ms": [u["ms"] for u in updates],
+          "ppo_update_ms_mean": float(np.mean([u["ms"] for u in updates])),
+          "updates": updates,
+          "act_batch_calls": len(act_s),
+          "act_batch_ms_mean": float(np.mean(act_s)) * 1e3,
+          "act_batch_ms_median": float(np.median(act_s)) * 1e3,
+          "launches": launched, "first_batch_equal_to_cpu": True,
+          "episodes_with_equal_actions": int(same_actions),
+          "first_update_loss_rel_diff": loss_rel,
+          "loss_rtol": TRAIN_LOSS_RTOL,
+          "card_losses": [(u["actor_loss"], u["critic_loss"])
+                          for u in updates],
+          "cpu_losses": [(l.actor_loss, l.critic_loss)
+                         for l in cpu_logs[::N_LANES]],
+          "leaves_finite": True, "serial_episodes": len(serial_logs),
+          "serial_forward_launches": serial_launches,
+          "checkpoint_restored_equal": True})
+    return launched, gpu.clone(seed=2), last["trajs"]
+
+
+def phase_late_profiles(bwd_timing, agent, trajs):
+    """The torch.profiler readings of the training path, taken after the
+    ops phase (whose own profiler readings come first in the process):
+    the backward kernel's device time at the PPO shapes, and one PPO
+    update's device busy time and idle share."""
+    bwd = {}
+    for case, t in bwd_timing.items():
+        calls = 20
+        kernels = device_kernels(t["launch"], calls)
+        bwd[case] = {"device_ms": sum(ms for _, ms in kernels) / calls,
+                     "device_kernels_per_call": len(kernels) / calls,
+                     "ms": t["ms"], "bound_ms": t["bound_ms"]}
+    emit({"phase": "train_profile", "backward_kernel": bwd,
+          "ppo_update": profile_update(agent, trajs)})
+
+
+def profile_update(agent, trajs):
+    """One PPO update under torch.profiler: the device's busy time by
+    kernel and its idle share of the update's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    agent.ppo_update_batch(trajs)              # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        agent.ppo_update_batch(trajs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    durs = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            durs.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    rows = sorted(((k, sum(v) / 1e3, len(v)) for k, v in durs.items()),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3),
+            "device_kernels": sum(r[2] for r in rows),
+            "by_kernel": [{"name": k[:80], "ms": t, "count": n}
+                          for k, t, n in rows[:10]]}
 
 
 def phase_profile(db, wl, meta, params):
@@ -773,11 +1116,13 @@ def main() -> int:
     phase_build()
     db, wl, meta = deployment()
     tree = load_reference_checkpoint(CKPT)
-    worst, timing = phase_kernels(db, wl, meta, tree)
+    worst, timing, bwd_worst, bwd_timing = phase_kernels(db, wl, meta, tree)
     launches = phase_serve(db, wl, meta, params_from_numpy(tree))
+    train_launches, trained, trajs = phase_train(db, wl, meta, tree)
     if args.profile:
         phase_profile(db, wl, meta, params_from_numpy(tree))
     ops_launches, ops_rows = phase_ops(tree, db, wl, meta)
+    phase_late_profiles(bwd_timing, trained, trajs)
     summary = [{
         "name": "tree_cnn_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tree_cnn_fused.cu",
@@ -785,7 +1130,15 @@ def main() -> int:
         "launches": launches, "max_abs_err": worst,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None, "case": "step18/serving"}]
+        "library_ms": None, "case": "step18/serving"}, {
+        "name": "tree_cnn_fused_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tree_cnn_fused_bwd.cu",
+        "replaces": "src/repro/kernels/tree_conv.py:202",
+        "launches": train_launches["tree_cnn_fused_bwd"],
+        "max_abs_err": bwd_worst,
+        **{k: bwd_timing["step18/ppo-actor/B24/N48"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "case": "step18/ppo-actor/B24/N48"}]
     for name, replaces, case in (
             ("tree_conv", "src/repro/kernels/tree_conv.py:56", "aqora/conv2"),
             ("flash_attention", "src/repro/kernels/flash_attention.py:79",

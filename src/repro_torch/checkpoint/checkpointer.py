@@ -1,0 +1,104 @@
+"""Step-atomic checkpoints in the reference's layout
+(`repro/checkpoint/checkpointer.py`), for the port's trees.
+
+A step directory `step_<8 digits>` holds one `.npy` per leaf (its path
+with "/" as "__") and `MANIFEST.json`, written LAST, with each leaf's
+file, shape, dtype and the sha1 of its bytes, the step and `extra`.
+Restore takes the newest step whose manifest and checksums hold (a torn
+write falls back to the step before) and rebuilds `tree_like`'s
+structure from the leaf paths; `keep_last` prunes older steps. So a
+checkpoint the port writes restores in the reference and the other way
+round. Leaves are saved from tensors (or arrays) and restored as CPU
+tensors. `save` writes synchronously.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import pathlib
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.tree import flatten, unflatten
+
+
+def _flatten(tree) -> List[Tuple[str, np.ndarray]]:
+    return [(name, np.array(leaf.detach().cpu().numpy()
+                            if isinstance(leaf, torch.Tensor) else leaf))
+            for name, leaf in flatten(tree)]
+
+
+class Checkpointer:
+    def __init__(self, directory, keep_last: int = 3):
+        self.dir = pathlib.Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep_last = keep_last
+
+    # ------------------------------------------------------------- save
+    def save(self, step: int, tree,
+             extra: Optional[Dict[str, Any]] = None) -> bool:
+        """Returns True if the checkpoint was written, False if `step`
+        already exists on disk and the save was skipped."""
+        if step in self.steps():
+            return False                           # already committed
+        d = self.dir / f"step_{step:08d}"
+        tmp = self.dir / f".tmp_step_{step:08d}"
+        tmp.mkdir(parents=True, exist_ok=True)
+        manifest = {"step": step, "extra": dict(extra or {}), "arrays": {},
+                    "time": time.time()}
+        for name, arr in _flatten(tree):
+            fn = name.replace("/", "__") + ".npy"
+            np.save(tmp / fn, arr)
+            manifest["arrays"][name] = {
+                "file": fn, "shape": list(arr.shape),
+                "dtype": str(arr.dtype),
+                "sha1": hashlib.sha1(arr.tobytes()).hexdigest(),
+            }
+        # manifest LAST = commit point
+        (tmp / "MANIFEST.json").write_text(json.dumps(manifest))
+        tmp.rename(d)
+        self._prune()
+        return True
+
+    # ------------------------------------------------------------- restore
+    def steps(self) -> List[int]:
+        out = []
+        for d in sorted(self.dir.glob("step_*")):
+            if (d / "MANIFEST.json").exists():
+                out.append(int(d.name.split("_")[1]))
+        return out
+
+    def restore(self, tree_like, step: Optional[int] = None,
+                verify: bool = True):
+        """Returns (tree, step, extra) from the newest valid checkpoint
+        (or `step`), leaves as CPU tensors. Raises FileNotFoundError if
+        none exists."""
+        cands = self.steps() if step is None else [step]
+        for s in sorted(cands, reverse=True):
+            d = self.dir / f"step_{s:08d}"
+            try:
+                manifest = json.loads((d / "MANIFEST.json").read_text())
+                leaves = {}
+                for name, meta in manifest["arrays"].items():
+                    arr = np.load(d / meta["file"])
+                    if verify and hashlib.sha1(
+                            arr.tobytes()).hexdigest() != meta["sha1"]:
+                        raise IOError(f"checksum mismatch: {name}")
+                    leaves[name] = torch.from_numpy(arr)
+                return unflatten(tree_like, leaves), s, manifest["extra"]
+            except Exception:
+                if step is not None:
+                    raise
+                continue                            # torn write: fall back
+        raise FileNotFoundError(f"no valid checkpoint under {self.dir}")
+
+    def _prune(self):
+        steps = self.steps()
+        for s in steps[:-self.keep_last]:
+            d = self.dir / f"step_{s:08d}"
+            for f in d.iterdir():
+                f.unlink()
+            d.rmdir()

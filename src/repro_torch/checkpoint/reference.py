@@ -7,7 +7,11 @@ to its file, shape, dtype and the sha1 of `arr.tobytes()`
 every leaf against its manifest entry and returns the tree as nested
 dicts of numpy arrays; `params_from_numpy` turns such a tree (or the
 reference agent's `actor`/`critic` converted with `np.asarray`) into the
-state dicts of the port's actor and critic.
+state dicts of the port's actor and critic. `agent_state_from_numpy`
+turns a whole reference agent tree `{actor, critic, aopt, copt}` into the
+port's agent state (`checkpoint.agent_io`), optimizer moments and steps
+included, and `agent_state_to_numpy` goes the other way; leaf names are
+the reference's on both sides.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from repro_torch.tree import tree_map
 
 
 def load_reference_checkpoint(directory) -> Dict:
@@ -56,3 +62,17 @@ def params_from_numpy(tree) -> Dict[str, Dict[str, torch.Tensor]]:
     such as optimizer states are ignored) -> {"actor": state_dict,
     "critic": state_dict} for `AqoraAgent.load_params`."""
     return {net: _state_dict(tree[net]) for net in ("actor", "critic")}
+
+
+def agent_state_from_numpy(tree) -> Dict:
+    """{"actor", "critic", "aopt", "copt"} nested numpy trees (a
+    reference checkpoint or `agent_state` converted with `np.asarray`) ->
+    the port's agent state, CPU tensors (each leaf copied)."""
+    return {k: tree_map(lambda x: torch.from_numpy(np.array(x)), tree[k])
+            for k in ("actor", "critic", "aopt", "copt")}
+
+
+def agent_state_to_numpy(state) -> Dict:
+    """The port's agent state -> nested numpy trees with the reference's
+    leaf names, dtypes (float32 leaves, int32 steps) and shapes."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), state)

@@ -11,7 +11,9 @@ scan kernel's order of sums (states split over lanes, then a butterfly
 over the lanes), for the tests to hold to the reference; no wrapper runs
 them.
 `tree_conv_batch_ref` and `tree_cnn_fused_ref` are the plain versions of
-the two tree kernels. They read a zero row for a child index outside
+the two tree kernels, and `tree_cnn_fused_bwd_ref` that of the fused
+encoder's backward kernel: autograd through `tree_cnn_fused_ref`, as the
+reference's `_fused_bwd` pulls the cotangent through its jnp forward. They read a zero row for a child index outside
 [0, N), as the reference's Pallas kernels' one-hots do, where the oracle
 `tree_conv_ref` gathers with `h[idx]` (past the end clamps to the last
 row, a negative index counts from the end).
@@ -204,6 +206,28 @@ def tree_cnn_fused_ref(feat, left, right, mask, params):
     h3 = layer(h2, params["conv3"]) + h2
     pooled = torch.where(m > 0, h3, -torch.inf).amax(dim=1)
     return torch.where(torch.isfinite(pooled), pooled, 0.0)
+
+
+def tree_cnn_fused_bwd_ref(feat, left, right, mask, params, g):
+    """Plain version of the `tree_cnn_fused` backward kernel: the
+    cotangents of `tree_cnn_fused_ref`'s inputs for the output cotangent
+    g (B, H). Returns (gfeat (B, N, F), gmask (B, N), gparams with the
+    params' nesting). The max-pool's gradient splits evenly among tied
+    maxima and an all-masked tree passes none back; leaky_relu's
+    gradient is 0.01 at exactly 0."""
+    with torch.enable_grad():
+        f = feat.detach().requires_grad_(True)
+        m = mask.detach().requires_grad_(True)
+        p = {l: {w: t.detach().requires_grad_(True) for w, t in ws.items()}
+             for l, ws in params.items()}
+        out = tree_cnn_fused_ref(f, left, right, m, p)
+        names = [(l, w) for l in p for w in p[l]]
+        grads = torch.autograd.grad(out, [f, m] + [p[l][w] for l, w in names],
+                                    g)
+    gparams = {l: {} for l in p}
+    for (l, w), gw in zip(names, grads[2:]):
+        gparams[l][w] = gw
+    return grads[0], grads[1], gparams
 
 
 def tree_conv_ref(feat, left, right, mask, wr, wl, wrt, b):

@@ -27,10 +27,22 @@ once, gathers children from shared memory, and fetches the other blocks'
 channels through distributed shared memory between layers
 (csrc/tree_cnn_fused.cu says more).
 
-Both wrappers run their plain versions (`ref.tree_conv_batch_ref`,
-`ref.tree_cnn_fused_ref`) for CPU tensors only; for CUDA tensors they
-launch the kernel or raise. `tree_cnn_fused_launches` counts the fused
-kernel's launches.
+Its gradient is a `torch.autograd.Function` whose backward is a third
+hand-written kernel, `tree_cnn_fused_backward` (csrc/tree_cnn_fused_bwd.cu),
+in place of the reference's `_fused_bwd`, a jnp recomputation: per tree
+it recomputes the three layers and pulls the output cotangent back
+through the max-pool (tied maxima share it evenly), the residual, the
+layers and the children's gathers; the weight gradients of all trees are
+summed in a second, fixed-order launch, so a backward repeats bit for
+bit. `tree_cnn_fused` takes the Function whenever autograd needs a
+gradient of feat, mask or a weight, and the bare forward otherwise.
+`tree_cnn_fused_bwd_launches` counts the backward's kernel launches on
+the card: two a call, the per-tree kernel and the summing kernel.
+
+Every wrapper runs its plain version (`ref.tree_conv_batch_ref`,
+`ref.tree_cnn_fused_ref`, `ref.tree_cnn_fused_bwd_ref`) for CPU tensors
+only; for CUDA tensors it launches the kernel or raises.
+`tree_cnn_fused_launches` counts the fused forward kernel's launches.
 """
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ MAX_HIDDEN = 128      # 32 node groups x H/8 channels per block <= 512
 MAX_FEAT = 512        # tree_conv's input width limit (shared memory)
 
 tree_cnn_fused_launches = 0    # kernel launches (not plain-version calls)
+tree_cnn_fused_bwd_launches = 0   # kernel launches, two a backward call
 tree_conv_launches = 0         # kernel launches (not plain-version calls)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -103,22 +116,14 @@ def _library():
     return fn
 
 
-def tree_cnn_fused(feat, left, right, mask, params: Params):
-    """Fused TreeCNN encoder. feat (B, N, F) float32, left/right (B, N)
-    int32 child indices (0 = the null slot), mask (B, N) float32, params
-    {"conv1"|"conv2"|"conv3": {"wr","wl","wrt": (Din, H), "b": (H,)}}, all
-    contiguous and on one device. Returns (B, H) float32."""
+def _forward(feat, left, right, mask, params: Params):
+    """The fused forward on checked inputs: the plain version on the CPU,
+    the kernel on CUDA."""
     global tree_cnn_fused_launches
-    _check(feat, left, right, mask, params)
     if feat.device.type == "cpu":
         return ref.tree_cnn_fused_ref(feat, left, right, mask, params)
     if feat.device.type != "cuda":
         raise ValueError(f"no kernel for device {feat.device}")
-    if torch.is_grad_enabled() and any(
-            params[l][w].requires_grad for l in LAYERS for w in WEIGHTS):
-        raise NotImplementedError(
-            "the fused kernel has no backward yet; it comes with the "
-            "training slice (ROADMAP Queue B1)")
     B, N, Fd = feat.shape
     H = params["conv1"]["wr"].shape[-1]
     out = torch.empty((B, H), dtype=torch.float32, device=feat.device)
@@ -133,6 +138,114 @@ def tree_cnn_fused(feat, left, right, mask, params: Params):
         raise RuntimeError(f"tree_cnn_fused launch failed: CUDA error {err}")
     tree_cnn_fused_launches += 1
     return out
+
+
+def _bwd_library():
+    from repro_torch.kernels import build
+    fn = build.load("tree_cnn_fused_bwd").tree_cnn_fused_backward
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _weight_shapes(Fd: int, H: int):
+    """(layer, weight, shape) in the backward kernel's flat order."""
+    return [(lname, w, (H,) if w == "b" else (Fd if i == 0 else H, H))
+            for i, lname in enumerate(LAYERS) for w in WEIGHTS]
+
+
+def tree_cnn_fused_backward(feat, left, right, mask, params: Params, g,
+                            need_feat: bool = True, need_mask: bool = True):
+    """The cotangents of `tree_cnn_fused`'s inputs for the output
+    cotangent g (B, H): (gfeat (B, N, F) or None, gmask (B, N) or None,
+    gparams nested as params). CPU tensors take the plain version
+    (`ref.tree_cnn_fused_bwd_ref`); CUDA tensors launch the backward
+    kernel or raise. gfeat and gmask are computed only when asked for."""
+    global tree_cnn_fused_bwd_launches
+    _check(feat, left, right, mask, params)
+    B, N, Fd = feat.shape
+    H = params["conv1"]["wr"].shape[-1]
+    _check_all(feat, [(g, "g", torch.float32, (B, H))])
+    if feat.device.type == "cpu":
+        gf, gm, gp = ref.tree_cnn_fused_bwd_ref(feat, left, right, mask,
+                                                params, g)
+        return (gf if need_feat else None), (gm if need_mask else None), gp
+    if feat.device.type != "cuda":
+        raise ValueError(f"no kernel for device {feat.device}")
+    if Fd > MAX_HIDDEN:
+        raise ValueError(f"the backward kernel takes F <= {MAX_HIDDEN}, "
+                         f"got F={Fd}")
+    shapes = _weight_shapes(Fd, H)
+    E = sum(int(torch.Size(s).numel()) for _, _, s in shapes)
+    dev = feat.device
+    partial = torch.empty((max(B, 1), E), dtype=torch.float32, device=dev)
+    flat = torch.empty(E, dtype=torch.float32, device=dev)
+    gfeat = torch.empty_like(feat) if need_feat else None
+    gmask = torch.empty_like(mask) if need_mask else None
+    ptrs = [feat.data_ptr(), left.data_ptr(), right.data_ptr(),
+            mask.data_ptr()]
+    for lname in LAYERS:
+        ptrs += [params[lname][w].data_ptr() for w in WEIGHTS]
+    ptrs += [g.data_ptr(), partial.data_ptr(), flat.data_ptr(),
+             0 if gfeat is None else gfeat.data_ptr(),
+             0 if gmask is None else gmask.data_ptr()]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_library()(*ptrs, B, N, Fd, H, stream)
+    if err != 0:
+        raise RuntimeError(f"tree_cnn_fused backward launch failed: CUDA "
+                           f"error {err}")
+    if B > 0:                      # per-tree kernel + summing kernel
+        tree_cnn_fused_bwd_launches += 2
+    gparams = {lname: {} for lname in LAYERS}
+    at = 0
+    for lname, w, shape in shapes:
+        n = int(torch.Size(shape).numel())
+        gparams[lname][w] = flat[at:at + n].view(shape)
+        at += n
+    return gfeat, gmask, gparams
+
+
+class _FusedTreeCNN(torch.autograd.Function):
+    """`tree_cnn_fused` with its backward kernel: saves (feat, left,
+    right, mask, weights) as the reference's `_fused_fwd` does."""
+
+    @staticmethod
+    def forward(ctx, feat, left, right, mask, *weights):
+        params = _nest(weights)
+        ctx.save_for_backward(feat, left, right, mask, *weights)
+        return _forward(feat, left, right, mask, params)
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, left, right, mask, *weights = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gfeat, gmask, gparams = tree_cnn_fused_backward(
+            feat, left, right, mask, _nest(weights), g.contiguous(),
+            need_feat=need[0], need_mask=need[3])
+        return (gfeat, None, None, gmask,
+                *(gparams[l][w] for l in LAYERS for w in WEIGHTS))
+
+
+def _nest(weights) -> Params:
+    it = iter(weights)
+    return {l: {w: next(it) for w in WEIGHTS} for l in LAYERS}
+
+
+def tree_cnn_fused(feat, left, right, mask, params: Params):
+    """Fused TreeCNN encoder. feat (B, N, F) float32, left/right (B, N)
+    int32 child indices (0 = the null slot), mask (B, N) float32, params
+    {"conv1"|"conv2"|"conv3": {"wr","wl","wrt": (Din, H), "b": (H,)}}, all
+    contiguous and on one device. Returns (B, H) float32, differentiable
+    in feat, mask and the weights (through the backward kernel on CUDA)."""
+    _check(feat, left, right, mask, params)
+    weights = [params[l][w] for l in LAYERS for w in WEIGHTS]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (feat, mask, *weights)):
+        return _FusedTreeCNN.apply(feat, left, right, mask, *weights)
+    return _forward(feat, left, right, mask, params)
 
 
 def _conv_library():

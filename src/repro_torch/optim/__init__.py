@@ -1,0 +1,5 @@
+"""The reference's hand-rolled AdamW over parameter trees."""
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     global_norm)
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]

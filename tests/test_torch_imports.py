@@ -28,6 +28,7 @@ COPIES = (
     "sql/plans.py", "sql/cluster.py", "sql/cbo.py",
     "serve/cache.py", "sql/executor.py",
     "core/encoding.py", "core/actions.py", "core/rollout.py",
+    "core/vec_rollout.py",
     "serve/deltas.py", "serve/scheduler.py", "serve/service.py",
     "serve/driver.py",
 )

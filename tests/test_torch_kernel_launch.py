@@ -96,6 +96,132 @@ def test_act_batch_launches_the_kernel_once(cuda):
     assert a.shape == (8,) and np.isfinite(logp).all()
 
 
+# ------------------------------------------- the fused encoder's backward
+# weight grads sum over every node and tree in another order than the
+# plain version's: 1e-5 + 1e-4 |plain|; the input grads likewise
+BWD_ATOL, BWD_RTOL = 1e-5, 1e-4
+
+
+def _bwd_case(cuda, B, N, F, H, seed, tie=False):
+    feat, left, right, mask = _inputs(B, N, F, seed)
+    if tie:            # node 2 repeats node 1: tied maxima in every channel
+        feat[:, 2] = feat[:, 1] * 10
+        feat[:, 1] = feat[:, 2]
+        left[:, 2], right[:, 2] = left[:, 1], right[:, 1]
+        mask[:-1, 1:3] = 1.0
+    enc = TreeCNN(F, H, torch.Generator().manual_seed(seed)).to(cuda)
+    with torch.no_grad():
+        for lname in tree_conv.LAYERS:
+            getattr(enc, lname).b.normal_(0.0, 0.1)
+    params = {l: {w: t.detach() for w, t in ws.items()}
+              for l, ws in enc.params().items()}
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (B, H)).astype(np.float32))
+    return [t.to(cuda) for t in (feat, left, right, mask)], params, g.to(cuda)
+
+
+def _bwd_close(got, want):
+    gf, gm, gp = got
+    wf, wm, wp = want
+    _close(gf, wf, BWD_ATOL, BWD_RTOL)
+    _close(gm, wm, BWD_ATOL, BWD_RTOL)
+    for l in tree_conv.LAYERS:
+        for w in tree_conv.WEIGHTS:
+            _close(gp[l][w], wp[l][w], BWD_ATOL, BWD_RTOL)
+
+
+@pytest.mark.parametrize("B,N,F,H,tie", [
+    (24, 48, 26, 96, False), (32, 48, 26, 96, False),   # the PPO shapes
+    (8, 16, 26, 96, False), (5, 64, 26, 96, False), (8, 32, 26, 96, True),
+    (3, 40, 9, 40, False), (2, 64, 128, 128, False), (4, 33, 27, 100, True)])
+def test_fused_backward_matches_plain(cuda, B, N, F, H, tie):
+    """Random trees with out-of-range children and an all-masked tree,
+    one backward call: gfeat, gmask and the 12 weight grads within
+    1e-5 + 1e-4 |plain|."""
+    (feat, left, right, mask), params, g = _bwd_case(cuda, B, N, F, H,
+                                                     seed=B + N, tie=tie)
+    before = tree_conv.tree_cnn_fused_bwd_launches
+    got = tree_conv.tree_cnn_fused_backward(feat, left, right, mask, params, g)
+    assert tree_conv.tree_cnn_fused_bwd_launches == before + 2
+    want = ref.tree_cnn_fused_bwd_ref(feat, left, right, mask, params, g)
+    torch.cuda.synchronize()
+    _bwd_close(got, want)
+    assert not got[0][-1].any() and not got[1][-1].any()
+
+
+def test_fused_backward_repeats_bit_for_bit(cuda):
+    (feat, left, right, mask), params, g = _bwd_case(cuda, 24, 48, 26, 96, 5)
+    first = tree_conv.tree_cnn_fused_backward(feat, left, right, mask,
+                                              params, g)
+    first = [first[0].clone(), first[1].clone(),
+             {l: {w: t.clone() for w, t in ws.items()}
+              for l, ws in first[2].items()}]
+    for _ in range(3):
+        again = tree_conv.tree_cnn_fused_backward(feat, left, right, mask,
+                                                  params, g)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+        for l in tree_conv.LAYERS:
+            for w in tree_conv.WEIGHTS:
+                assert torch.equal(again[2][l][w], first[2][l][w])
+
+
+def test_autograd_goes_through_both_kernels(cuda):
+    """A loss through the encoder on the card: one forward launch, one
+    backward call (two launches), grads only where asked, and no plain
+    version."""
+    (feat, left, right, mask), params, g = _bwd_case(cuda, 8, 48, 26, 96, 9)
+    w = {l: {n: t.clone().requires_grad_(True) for n, t in ws.items()}
+         for l, ws in params.items()}
+    f0, b0 = tree_conv.tree_cnn_fused_launches, \
+        tree_conv.tree_cnn_fused_bwd_launches
+    out = tree_conv.tree_cnn_fused(feat, left, right, mask, w)
+    (out * g).sum().backward()
+    assert tree_conv.tree_cnn_fused_launches == f0 + 1
+    assert tree_conv.tree_cnn_fused_bwd_launches == b0 + 2
+    want = ref.tree_cnn_fused_bwd_ref(feat, left, right, mask, params, g)
+    for l in tree_conv.LAYERS:
+        for n in tree_conv.WEIGHTS:
+            _close(w[l][n].grad, want[2][l][n], BWD_ATOL, BWD_RTOL)
+    ff = feat.clone().requires_grad_(True)
+    out = tree_conv.tree_cnn_fused(ff, left, right, mask, params)
+    (out * g).sum().backward()
+    _close(ff.grad, want[0], BWD_ATOL, BWD_RTOL)
+
+
+def test_ppo_update_on_the_card(cuda):
+    """One PPO update of the CUDA agent launches the forward 1 + 2 e
+    times and calls the backward 2 e times (4 e launches) and moves the
+    actor."""
+    from repro_torch.core.rollout import Trajectory
+    meta = WorkloadMeta({f"t{i}": i for i in range(20)}, 17)
+    agent = AqoraAgent(meta, AgentConfig(), seed=0)
+    feat, left, right, mask = (t.numpy() for t in _inputs(6, 64, 26, 3))
+    mask[:, 40:] = 0.0
+    left, right = np.clip(left, 0, 39), np.clip(right, 0, 39)
+    trajs = []
+    for b in range(2):
+        t = Trajectory()
+        for i in range(3):
+            s = 3 * b + i
+            t.states.append((feat[s], left[s], right[s], mask[s]))
+        amask = np.ones(agent.space.d, np.float32)
+        t.actions, t.logps = [1, 2], [-5.0, -5.1]
+        t.masks, t.rewards, t.t_execute = [amask, amask], [0.5, -0.25], 30.0
+        trajs.append(t)
+    before = [p.detach().clone() for p in agent.actor.parameters()]
+    f0, b0 = tree_conv.tree_cnn_fused_launches, \
+        tree_conv.tree_cnn_fused_bwd_launches
+    m = agent.ppo_update_batch(trajs)
+    e = agent.cfg.ppo_epochs
+    assert tree_conv.tree_cnn_fused_launches == f0 + 1 + 2 * e
+    assert tree_conv.tree_cnn_fused_bwd_launches == b0 + 4 * e
+    assert np.isfinite(m["actor_loss"]) and np.isfinite(m["critic_loss"])
+    assert any(not torch.equal(a, b) for a, b in
+               zip(before, agent.actor.parameters()))
+    assert int(agent.aopt["step"]) == e
+
+
 # ------------------------------------------------- the kernels.ops kernels
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402

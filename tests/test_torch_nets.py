@@ -101,8 +101,13 @@ def test_act_batch_matches_reference(agents):
     assert a_p.dtype == np.int32 and k_p.dtype == np.uint32
     np.testing.assert_allclose(lp_p, lp_r, atol=1e-4)
     np.testing.assert_array_equal(k_p, k_r)
-    with pytest.raises(NotImplementedError, match="A5"):
-        port.act_batch(feat, left, right, mask, amask, keys, explore=True)
+    a_r, lp_r, k_r = ref.act_batch(feat, left, right, mask, amask, keys,
+                                   explore=True)
+    a_p, lp_p, k_p = port.act_batch(feat, left, right, mask, amask, keys,
+                                    explore=True)
+    np.testing.assert_array_equal(a_p, a_r)
+    np.testing.assert_allclose(lp_p, lp_r, atol=1e-4)
+    np.testing.assert_array_equal(k_p, k_r)
 
 
 def test_single_state_surface_matches_reference(agents):
@@ -122,5 +127,13 @@ def test_single_state_surface_matches_reference(agents):
     ak_p = port.act_keyed(enc, amask, key, explore=False)
     assert ak_p[0] == ak_r[0] and abs(ak_p[1] - ak_r[1]) < 1e-4
     np.testing.assert_array_equal(ak_p[2], ak_r[2])
-    with pytest.raises(NotImplementedError):
-        port.act(enc, amask, explore=True)
+    ak_r = ref.act_keyed(enc, amask, key, explore=True)
+    ak_p = port.act_keyed(enc, amask, key, explore=True)
+    assert ak_p[0] == ak_r[0] and abs(ak_p[1] - ak_r[1]) < 1e-4
+    np.testing.assert_array_equal(ak_p[2], ak_r[2])
+    port.rng = np.asarray(ref.rng, np.uint32).copy()
+    for _ in range(3):                 # the serial chain, as jax.random.choice
+        a_r, lp_r = ref.act(enc, amask, explore=True)
+        a_p, lp_p = port.act(enc, amask, explore=True)
+        assert a_p == a_r and abs(lp_p - lp_r) < 1e-4
+    np.testing.assert_array_equal(port.rng, np.asarray(ref.rng))

@@ -1,0 +1,93 @@
+"""The port's sampling half of the PRNG against jax.random 0.9.0: bits
+and uniforms bit for bit, Gumbel values to 1e-6, categorical draws and
+`choice` indices identical, over hundreds of seeded (key, logits)
+pairs."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro_torch.core import prng  # noqa: E402
+
+D = 172                                       # JOB's action count
+
+
+def _subkeys(n, seed):
+    keys = np.stack([prng.prng_key(seed * 1000 + s) for s in range(n)])
+    return prng.split(keys)[:, 1]
+
+
+@pytest.mark.parametrize("shape", [(), (1,), (7,), (D,), (3, 5)])
+def test_bits_and_uniform_bit_equal(shape):
+    for key in _subkeys(20, len(shape) + 1):
+        np.testing.assert_array_equal(prng.random_bits(key, shape),
+                                      np.asarray(jax.random.bits(key, shape)))
+        np.testing.assert_array_equal(
+            prng.uniform(key, shape), np.asarray(jax.random.uniform(key, shape)))
+        tiny = float(np.finfo(np.float32).tiny)
+        np.testing.assert_array_equal(
+            prng.uniform(key, shape, minval=tiny, maxval=1.0),
+            np.asarray(jax.random.uniform(key, shape, minval=tiny,
+                                          maxval=1.0)))
+        np.testing.assert_array_equal(
+            prng.uniform(key, shape, minval=-2.0, maxval=3.0),
+            np.asarray(jax.random.uniform(key, shape, minval=-2.0,
+                                          maxval=3.0)))
+
+
+def test_stacked_keys_draw_per_key():
+    subs = _subkeys(9, 3)
+    np.testing.assert_array_equal(
+        prng.uniform(subs, (D,)),
+        np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (D,)))(subs)))
+
+
+def test_gumbel_values_close():
+    """-log(-log(u)) in torch against jax.random.gumbel: within 1e-6 of
+    max(1, |value|) (the two libms differ in the last bit)."""
+    subs = _subkeys(200, 5)
+    want = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (D,)))(subs))
+    u = torch.from_numpy(prng.gumbel_uniforms(subs, D))
+    got = (-torch.log(-torch.log(u))).numpy()
+    assert np.all(np.abs(got - want) <= 1e-6 * np.maximum(1.0, np.abs(want)))
+
+
+@pytest.mark.parametrize("temp", [0.1, 1.0, 4.0])
+def test_categorical_matches_vmapped_jax(temp):
+    """240 (key, logits) pairs with -1e9-masked entries: identical draws
+    to `jax.vmap(jax.random.categorical)`."""
+    rng = np.random.default_rng(int(temp * 10))
+    subs = _subkeys(240, int(temp * 10) + 7)
+    lg = (temp * rng.standard_normal((240, D))).astype(np.float32)
+    lg[rng.random((240, D)) < 0.6] = -1e9
+    lg[:, 0] = 0.0                             # at least one live action
+    got = prng.categorical(subs, torch.from_numpy(lg)).numpy()
+    want = np.asarray(jax.vmap(jax.random.categorical)(subs, lg))
+    np.testing.assert_array_equal(got, want)
+    assert len(set(got.tolist())) > 10          # the draws do vary
+
+
+@pytest.mark.parametrize("n", [5, 16, 17, 100, D, 300, 1000])
+def test_cumsum_in_jax_order(n):
+    rng = np.random.default_rng(n)
+    for _ in range(10):
+        x = rng.random(n).astype(np.float32)
+        x[rng.random(n) < 0.4] = 0.0
+        np.testing.assert_array_equal(prng.cumsum(x),
+                                      np.asarray(jnp.cumsum(jnp.asarray(x))))
+
+
+def test_choice_matches_jax():
+    """240 (key, p) pairs: the index `jax.random.choice(k, n, p=p)`
+    draws."""
+    rng = np.random.default_rng(11)
+    subs = _subkeys(240, 13)
+    for i, k in enumerate(subs):
+        lg = (2.0 * rng.standard_normal(D)).astype(np.float32)
+        lg[rng.random(D) < 0.5] = -1e9
+        p = np.asarray(jax.nn.softmax(jnp.asarray(lg)))
+        assert prng.choice(k, D, p) == int(jax.random.choice(
+            k, D, p=jnp.asarray(p))), i
