@@ -19,7 +19,8 @@ Phases, each printing one JSON line:
            the 12 weight grads, gfeat and gmask each within BWD_ATOL +
            BWD_RTOL * |plain|, every case checked before any fails; the
            same inputs twice give bitwise-equal gradients; its time by
-           CUDA events beside its bound and the plain version's;
+           CUDA events beside its bound and the plain version's, with its
+           cluster size, blocks an SM and `cudaOccupancyMaxActiveClusters`;
   serve    the repo's default deployment (JOB-like db at scale 0.25, the
            16-query test split, step-18 weights, 8 async lanes, a 48-query
            open-loop stream at 2 qps) served on the card through the
@@ -37,7 +38,8 @@ Phases, each printing one JSON line:
            times (4 * epochs launches: per-tree and summing kernel);
            then two serial episodes on the card (`act(explore=True)`), a
            Checkpointer save of the trained state that restores to equal
-           leaves;
+           leaves; before all that, a fresh `AqoraAgent(meta, seed=0)`
+           built on the card and on the CPU must be equal leaf for leaf;
   ops      the `kernels.ops` path at full model widths from the reference's
            configs (src/repro/configs): `mha_flash` at qwen3-8b prefill,
            decode, a 4-query suffix and fp32 and at gemma2-27b's
@@ -430,10 +432,11 @@ def backward_timing(feat, left, right, mask, params):
     """The backward kernel's time as the PPO update calls it (weight
     grads only), by CUDA events over raw launches and by torch.profiler
     (its two device kernels, in `phase_late_profiles`), beside the plain
-    version's and the card's
-    bound: each input read once, the weight grads written once, and the
-    FMAs the real nodes need (the three layers' recompute, their weight
-    gradients and the input gradients of layers 3 and 2)."""
+    version's and the card's bound: each input read once, the weight
+    grads written once, and the FMAs the real nodes need (the three
+    layers' recompute, their weight gradients and the input gradients of
+    layers 3 and 2). Beside it, the kernel's blocks a tree, blocks an SM
+    and clusters resident at once (`tree_conv.backward_occupancy`)."""
     B, N, Fd = feat.shape
     H = params["conv1"]["wr"].shape[1]
     g = torch.ones((B, H), device=feat.device)
@@ -447,6 +450,7 @@ def backward_timing(feat, left, right, mask, params):
             B, N, Fd, H, torch.cuda.current_stream().cuda_stream)
     fn = tree_conv._bwd_library()
     kernel_ms = cuda_ms(lambda: fn(*args), launches=200)
+    occupancy = tree_conv.backward_occupancy(N, Fd, H)
     plain = cuda_ms(lambda: ref.tree_cnn_fused_bwd_ref(
         feat, left, right, mask, params, g), launches=20)
     real_nodes = float(mask.sum())
@@ -454,6 +458,8 @@ def backward_timing(feat, left, right, mask, params):
     n_bytes = 4 * (feat.numel() + left.numel() + right.numel() + mask.numel()
                    + g.numel() + 2 * E)
     return {"shape": [B, N, Fd, H], "real_nodes": real_nodes, "ms": kernel_ms,
+            **{k: occupancy[k] for k in ("cluster", "blocks_per_sm",
+                                         "max_active_clusters")},
             "plain_ms": plain, **bound(n_bytes, flops, FP32_FLOPS),
             "launch": lambda: fn(*args)}
 
@@ -559,6 +565,13 @@ def leaves_of(agent):
 def phase_train(db, wl, meta, ckpt_tree):
     """The training path from step 18's full state, on the card through
     the kernels and on the CPU through the plain versions."""
+    # a fresh agent from a seed: drawn on the host, so the card's and the
+    # CPU's are equal leaf for leaf
+    fresh = [leaves_of(AqoraAgent(meta, AgentConfig(), seed=0, device=dev))
+             for dev in (None, "cpu")]
+    if set(fresh[0]) != set(fresh[1]) or not all(
+            np.array_equal(fresh[0][k], v) for k, v in fresh[1].items()):
+        raise AssertionError("a fresh seeded agent differs on the card")
     state = agent_state_from_numpy(ckpt_tree)
     agents = {}
     for dev in (None, "cpu"):                 # None: the default, CUDA
@@ -677,7 +690,8 @@ def phase_train(db, wl, meta, ckpt_tree):
                          for l in cpu_logs[::N_LANES]],
           "leaves_finite": True, "serial_episodes": len(serial_logs),
           "serial_forward_launches": serial_launches,
-          "checkpoint_restored_equal": True})
+          "checkpoint_restored_equal": True,
+          "fresh_seeded_agent_equal_to_cpu": True})
     return launched, gpu.clone(seed=2), last["trajs"]
 
 
@@ -692,7 +706,9 @@ def phase_late_profiles(bwd_timing, agent, trajs):
         kernels = device_kernels(t["launch"], calls)
         bwd[case] = {"device_ms": sum(ms for _, ms in kernels) / calls,
                      "device_kernels_per_call": len(kernels) / calls,
-                     "ms": t["ms"], "bound_ms": t["bound_ms"]}
+                     **{k: t[k] for k in ("ms", "bound_ms", "cluster",
+                                          "blocks_per_sm",
+                                          "max_active_clusters")}}
     emit({"phase": "train_profile", "backward_kernel": bwd,
           "ppo_update": profile_update(agent, trajs)})
 

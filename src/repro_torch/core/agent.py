@@ -100,12 +100,13 @@ class AqoraAgent:
         self.meta = meta
         self.cfg = cfg
         self.space = ActionSpace(meta.n_tables_max, cfg.families)
-        gen = torch.Generator().manual_seed(seed)
+        # the reference's keys; weights drawn on the host, then moved
+        k = prng.split(prng.prng_key(seed), 5)
         F, H = meta.feat_dim, cfg.hidden
         self.actor = nets.EncoderHead(F, H, cfg.head_hidden, self.space.d,
-                                      gen).to(self.device)
+                                      k[0], k[1]).to(self.device)
         self.critic = nets.EncoderHead(F, H, cfg.head_hidden, 1,
-                                       gen).to(self.device)
+                                       k[2], k[3]).to(self.device)
         self.aopt = adamw_init(param_tree(self.actor))
         self.copt = adamw_init(param_tree(self.critic))
         self._acfg = AdamWConfig(lr=cfg.lr_actor, weight_decay=0.0,

@@ -29,15 +29,23 @@ channels through distributed shared memory between layers
 
 Its gradient is a `torch.autograd.Function` whose backward is a third
 hand-written kernel, `tree_cnn_fused_backward` (csrc/tree_cnn_fused_bwd.cu),
-in place of the reference's `_fused_bwd`, a jnp recomputation: per tree
-it recomputes the three layers and pulls the output cotangent back
-through the max-pool (tied maxima share it evenly), the residual, the
-layers and the children's gathers; the weight gradients of all trees are
-summed in a second, fixed-order launch, so a backward repeats bit for
+in place of the reference's `_fused_bwd`, a jnp recomputation: it
+recomputes the three layers and pulls the output cotangent back through
+the max-pool (tied maxima share it evenly), the residual, the layers and
+the children's gathers. Like the forward it runs a thread-block cluster
+per tree, of 4 blocks: block r owns a slice of the output
+channels for the recompute, the layers' g_z and the weight gradients,
+and the same slice of the input width for the input gradient, after one
+all-gather of g_z through distributed shared memory a layer; each
+phase's weight slices are staged in shared memory with cp.async. The
+weight gradients of all trees are summed in a second, fixed-order
+launch and nothing uses float atomics, so a backward repeats bit for
 bit. `tree_cnn_fused` takes the Function whenever autograd needs a
 gradient of feat, mask or a weight, and the bare forward otherwise.
 `tree_cnn_fused_bwd_launches` counts the backward's kernel launches on
-the card: two a call, the per-tree kernel and the summing kernel.
+the card: two a call, the per-tree cluster kernel and the summing
+kernel. `backward_occupancy` reads the cluster kernel's launch shape and
+occupancy.
 
 Every wrapper runs its plain version (`ref.tree_conv_batch_ref`,
 `ref.tree_cnn_fused_ref`, `ref.tree_cnn_fused_bwd_ref`) for CPU tensors
@@ -150,6 +158,25 @@ def _bwd_library():
     return fn
 
 
+def backward_occupancy(N: int, F: int, H: int) -> Dict[str, int]:
+    """The backward's per-tree kernel at (N, F, H): its blocks a tree,
+    threads and shared memory a block, and the card's occupancy for it
+    (blocks an SM, clusters resident at once). Needs the card."""
+    from repro_torch.kernels import build
+    fn = build.load("tree_cnn_fused_bwd").tree_cnn_fused_backward_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(N, F, H, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"backward occupancy query failed: CUDA error "
+                           f"{err}")
+    keys = ("cluster", "threads", "smem_bytes", "blocks_per_sm",
+            "max_active_clusters")
+    return dict(zip(keys, out))
+
+
 def _weight_shapes(Fd: int, H: int):
     """(layer, weight, shape) in the backward kernel's flat order."""
     return [(lname, w, (H,) if w == "b" else (Fd if i == 0 else H, H))
@@ -197,7 +224,7 @@ def tree_cnn_fused_backward(feat, left, right, mask, params: Params, g,
     if err != 0:
         raise RuntimeError(f"tree_cnn_fused backward launch failed: CUDA "
                            f"error {err}")
-    if B > 0:                      # per-tree kernel + summing kernel
+    if B > 0:                  # per-tree cluster kernel + summing kernel
         tree_cnn_fused_bwd_launches += 2
     gparams = {lname: {} for lname in LAYERS}
     at = 0

@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.agent import AgentConfig, AqoraAgent  # noqa: E402
 from repro_torch.core.encoding import WorkloadMeta  # noqa: E402
 from repro_torch.core.nets import TreeCNN  # noqa: E402
@@ -35,7 +36,7 @@ def _inputs(B=8, N=48, F=26, seed=0):
 
 
 def test_mixed_devices_raise(cuda):
-    enc = TreeCNN(26, 96, torch.Generator().manual_seed(0)).to(cuda)
+    enc = TreeCNN(26, 96, prng.prng_key(0)).to(cuda)
     feat, left, right, mask = _inputs()
     with pytest.raises(ValueError, match="is on"):
         tree_conv.tree_cnn_fused(feat.to(cuda), left, right.to(cuda),
@@ -45,7 +46,7 @@ def test_mixed_devices_raise(cuda):
 
 
 def test_wrong_dtype_or_layout_raises_on_card(cuda):
-    enc = TreeCNN(26, 96, torch.Generator().manual_seed(0)).to(cuda)
+    enc = TreeCNN(26, 96, prng.prng_key(0)).to(cuda)
     feat, left, right, mask = (t.to(cuda) for t in _inputs())
     with torch.inference_mode():
         with pytest.raises(TypeError):
@@ -64,7 +65,7 @@ def test_wrong_dtype_or_layout_raises_on_card(cuda):
                                      (8, 64, 26, 96), (3, 40, 9, 40),
                                      (2, 64, 27, 128)])
 def test_one_launch_per_encoder_call(cuda, B, N, F, H):
-    enc = TreeCNN(F, H, torch.Generator().manual_seed(1)).to(cuda)
+    enc = TreeCNN(F, H, prng.prng_key(1)).to(cuda)
     feat, left, right, mask = (t.to(cuda) for t in _inputs(B, N, F))
     with torch.inference_mode():
         before = tree_conv.tree_cnn_fused_launches
@@ -102,14 +103,14 @@ def test_act_batch_launches_the_kernel_once(cuda):
 BWD_ATOL, BWD_RTOL = 1e-5, 1e-4
 
 
-def _bwd_case(cuda, B, N, F, H, seed, tie=False):
+def _bwd_case(cuda, B, N, F, H, seed, tie=False, scale=10):
     feat, left, right, mask = _inputs(B, N, F, seed)
     if tie:            # node 2 repeats node 1: tied maxima in every channel
-        feat[:, 2] = feat[:, 1] * 10
+        feat[:, 2] = feat[:, 1] * scale
         feat[:, 1] = feat[:, 2]
         left[:, 2], right[:, 2] = left[:, 1], right[:, 1]
         mask[:-1, 1:3] = 1.0
-    enc = TreeCNN(F, H, torch.Generator().manual_seed(seed)).to(cuda)
+    enc = TreeCNN(F, H, prng.prng_key(seed)).to(cuda)
     with torch.no_grad():
         for lname in tree_conv.LAYERS:
             getattr(enc, lname).b.normal_(0.0, 0.1)
@@ -147,6 +148,63 @@ def test_fused_backward_matches_plain(cuda, B, N, F, H, tie):
     torch.cuda.synchronize()
     _bwd_close(got, want)
     assert not got[0][-1].any() and not got[1][-1].any()
+
+
+def _tied_channels(feat, left, right, mask, params):
+    """(tree, channel) pairs whose max-pool has more than one maximum, by
+    the plain version's layers."""
+    m = mask.unsqueeze(-1)
+
+    def layer(h, p):
+        return ref.tree_layer(h, left, right, m,
+                              *(p[w] for w in tree_conv.WEIGHTS))
+    h1 = layer(feat * m, params["conv1"])
+    h2 = layer(h1, params["conv2"])
+    h3 = torch.where(m > 0, layer(h2, params["conv3"]) + h2, -torch.inf)
+    top = h3.amax(dim=1, keepdim=True)
+    return int((((h3 == top) & (m > 0)).sum(dim=1) > 1).sum())
+
+
+@pytest.mark.parametrize("F", [26, 128])
+@pytest.mark.parametrize("H", [64, 96, 128])
+@pytest.mark.parametrize("N", [1, 16, 48, 64])
+@pytest.mark.parametrize("B", [1, 24, 32, 33])
+def test_fused_backward_cluster_edges(cuda, B, N, F, H):
+    """The cluster kernel at its edges: one tree or more trees than the
+    card holds at once with one block an SM, one node or the node limit,
+    channel slices of 16 to 32, a ragged F slice (26) and the
+    widest input (128); trees in which node 2 repeats node 1 at twice its
+    features (N >= 3; tied maxima in some channels of every batch of more
+    than one tree) and an all-masked tree (B > 1). One
+    call, two launches, every output within 1e-5 + 1e-4 |plain|. (At ten
+    times the features, as `_bwd_case` scales its own tied cases, the
+    fp32 plain version itself strays past this limit, up to 1.7 times it,
+    from the fp64 one on 16-node trees, so another summation order cannot
+    be held to it there.)"""
+    (feat, left, right, mask), params, g = _bwd_case(
+        cuda, B, N, F, H, seed=B * N + H + F, tie=N >= 3, scale=2)
+    if B == 1:
+        mask[0, : min(N, 2)] = 1.0      # the one tree is not all-masked
+    if N >= 3 and B > 1:
+        assert _tied_channels(feat, left, right, mask, params) > 0
+    before = tree_conv.tree_cnn_fused_bwd_launches
+    got = tree_conv.tree_cnn_fused_backward(feat, left, right, mask, params, g)
+    assert tree_conv.tree_cnn_fused_bwd_launches == before + 2
+    want = ref.tree_cnn_fused_bwd_ref(feat, left, right, mask, params, g)
+    torch.cuda.synchronize()
+    _bwd_close(got, want)
+    if B > 1:
+        assert not got[0][-1].any() and not got[1][-1].any()
+
+
+def test_backward_occupancy(cuda):
+    """At the PPO shape two 4-block clusters share the SMs, so the card
+    holds the critic's 32 trees at once; the widest shape fits too."""
+    occ = tree_conv.backward_occupancy(48, 26, 96)
+    assert occ["cluster"] == 4 and occ["blocks_per_sm"] == 2
+    assert occ["max_active_clusters"] >= 32
+    assert tree_conv.backward_occupancy(64, 128, 128)[
+        "max_active_clusters"] >= 1
 
 
 def test_fused_backward_repeats_bit_for_bit(cuda):

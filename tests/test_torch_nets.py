@@ -17,8 +17,9 @@ from repro.core.agent import AgentConfig as JAgentConfig  # noqa: E402
 from repro.core.agent import AqoraAgent as JAgent  # noqa: E402
 from repro.core.encoding import WorkloadMeta as JMeta  # noqa: E402
 from repro_torch.checkpoint import params_from_numpy  # noqa: E402
-from repro_torch.core import nets  # noqa: E402
-from repro_torch.core.agent import AgentConfig, AqoraAgent  # noqa: E402
+from repro_torch import tree  # noqa: E402
+from repro_torch.core import nets, prng  # noqa: E402
+from repro_torch.core.agent import AgentConfig, AqoraAgent, param_tree  # noqa: E402
 from repro_torch.core.encoding import WorkloadMeta  # noqa: E402
 
 TABLES = {f"t{i}": i for i in range(20)}        # feat_dim 26, as JOB's
@@ -49,7 +50,7 @@ def test_encoder_and_head_match_reference(F, H, hh, d):
     k = jax.random.split(jax.random.PRNGKey(F), 2)
     actor = {"enc": jnets.init_encoder(k[0], "treecnn", F, H),
              "head": jnets.init_mlp_head(k[1], H, hh, d)}
-    net = nets.EncoderHead(F, H, hh, d)
+    net = nets.EncoderHead(F, H, hh, d, *prng.split(prng.prng_key(0)))
     net.load_state_dict(params_from_numpy(
         {"actor": _np_tree(actor), "critic": _np_tree(actor)})["actor"])
     feat, left, right, mask = _states(6, 32, F, seed=H)
@@ -70,6 +71,34 @@ def test_encoder_and_head_match_reference(F, H, hh, d):
     np.testing.assert_allclose(single.numpy(), np.asarray(ref1),
                                atol=1e-4, rtol=1e-4)
     assert not enc[-1].any()                    # padded lane pools to 0
+
+
+def _ulps(a, b):
+    def ordered(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return np.abs(ordered(a) - ordered(b))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_fresh_agent_matches_reference_initialisation(seed):
+    """`AqoraAgent(meta, seed=s)` with nothing copied in: every actor and
+    critic leaf within 2 ulp of the reference's `AqoraAgent(meta,
+    seed=s)` (both draw jax.random.normal from split(PRNGKey(s), 5)), and
+    the same key chain."""
+    ref = JAgent(JMeta(TABLES, 17), JAgentConfig(), seed=seed)
+    port = AqoraAgent(WorkloadMeta(TABLES, 17), AgentConfig(), seed=seed,
+                      device="cpu")
+    for net in ("actor", "critic"):
+        want = dict(tree.flatten(_np_tree(getattr(ref, net))))
+        got = {k: v.detach().numpy() for k, v in
+               tree.flatten(param_tree(getattr(port, net)))}
+        assert set(got) == set(want)
+        for name, w in want.items():
+            assert got[name].shape == w.shape and got[name].dtype == w.dtype
+            d = _ulps(got[name], w)
+            assert d.max() <= 2, (net, name, int(d.max()))
+    np.testing.assert_array_equal(port.rng, np.asarray(ref.rng))
 
 
 @pytest.fixture(scope="module")

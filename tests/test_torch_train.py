@@ -309,6 +309,25 @@ def test_train_agent_batched_matches_reference(job_db, job_workload,
     assert params_finite(agent)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_train_agent_from_a_seed_matches_reference(job_db, job_workload,
+                                                   estimator, seed):
+    """Alg. 1 from scratch: `train_agent(episodes=8, batch_size=4,
+    seed=s)` with no `agent=` builds the reference's initial agent, so its
+    first episode-batch takes the reference's actions, with losses to
+    1e-5 relative."""
+    _, want = jtrain_agent(job_db, job_workload, episodes=8, seed=seed,
+                           est=estimator, batch_size=4)
+    _, got = train_agent(job_db, job_workload, episodes=8, seed=seed,
+                         est=Estimator(job_db, job_db.stats), batch_size=4,
+                         device="cpu")
+    for w, g in zip(want[:4], got[:4]):
+        assert (g.query, g.actions, g.latency, g.failed) == \
+            (w.query, w.actions, w.latency, w.failed)
+        np.testing.assert_allclose(g.actor_loss, w.actor_loss, rtol=1e-5)
+        np.testing.assert_allclose(g.critic_loss, w.critic_loss, rtol=1e-5)
+
+
 def test_train_agent_builds_its_agent_on_the_device(job_db, job_workload):
     agent, logs = train_agent(job_db, job_workload, episodes=2, seed=1,
                               batch_size=1, device="cpu",
