@@ -40,6 +40,34 @@ Phases, each printing one JSON line:
            Checkpointer save of the trained state that restores to equal
            leaves; before all that, a fresh `AqoraAgent(meta, seed=0)`
            built on the card and on the CPU must be equal leaf for leaf;
+  learn    the lifelong-learning loop at the same deployment from step
+           18's full state: the serve's 48-query stream served exploring
+           on 8 lanes under `make_online_loop` (a PPO update every 8
+           completions on 8 replayed trajectories, a policy-store gate
+           every 2 updates on the first 4 test queries, an adaptive
+           curriculum), on the card and again on the CPU. Completions,
+           learner stats (all but host seconds), gate verdicts and scores
+           and curriculum promotions must be identical, the final serving
+           state finite and within LEARN_LEAF_ATOL of the CPU's, and each
+           update on the card must have launched the forward kernel
+           1 + 2 * epochs times and the backward 4 * epochs times. The
+           same stream served on the card with a shadow-mode store (no
+           curriculum) must be bit-identical to learning off. The line
+           gives ms an update and a gate, the learner's host share of the
+           serve wall, the walls with learning on, shadow and off, and the
+           smallest sampled top-1/top-2 margin;
+  qos      a `LatencyPredictor` warm-started from the step-18 critic
+           drives `QoSAdmission` (a gold tenant, weight 2, 40 s SLO; a
+           bulk tenant rate-limited to 1.5 q/s, 300 s SLO; the standard
+           ladder) on 8 EDF lanes over 2 x 24 queries, on the card and on
+           the CPU: admissions, deferrals, rejections, degradations, hook
+           budgets and completions identical, each prediction within
+           QOS_PRED_RTOL of the CPU's (with its smallest relative distance
+           from a rung), one forward launch per uncached prediction; then
+           `fit_from_replay` (64 samples, batch 16, 2 epochs) on each
+           side's learn-phase replay buffer from `default_rng(0)`: the
+           same experiences, losses within FIT_LOSS_RTOL, one backward
+           call (2 launches) per fit step, the serving critic untouched;
   ops      the `kernels.ops` path at full model widths from the reference's
            configs (src/repro/configs): `mha_flash` at qwen3-8b prefill,
            decode, a 4-query suffix and fp32 and at gemma2-27b's
@@ -72,9 +100,13 @@ With `--profile`, one more card serve runs under `torch.profiler`: its
 line gives the device's busy time by kernel and its idle share of the
 wall time.
 
-Then the kernels summary line, the `nvidia-smi` line, and the result line
-`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
-without CUDA the script exits non-zero before printing any result.
+Then the kernels summary line (the encoder rows' launches sum the serve,
+learn and qos phases', and the train, learn and qos phases' for the
+backward), the `nvidia-smi` line, and the result line
+`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero
+(the learn and qos phases check every case first and name each
+mismatch); without CUDA the script exits non-zero before printing any
+result.
 """
 from __future__ import annotations
 
@@ -98,6 +130,7 @@ from repro_torch.checkpoint import (Checkpointer, agent_state,  # noqa: E402
                                     install_agent_state,
                                     load_reference_checkpoint, params_finite,
                                     params_from_numpy)
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.agent import (AgentConfig, AqoraAgent,  # noqa: E402
                                     _node_bucket)
 from repro_torch.core.encoding import WorkloadMeta, encode_state  # noqa: E402
@@ -105,7 +138,13 @@ from repro_torch.core.train_loop import train_agent  # noqa: E402
 from repro_torch.kernels import build, ops, ref, tree_conv  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
-from repro_torch.serve.driver import open_loop_stream  # noqa: E402
+from repro_torch.learn import (AdaptiveCurriculum, PolicyStore,  # noqa: E402
+                               make_online_loop)
+from repro_torch.serve.driver import (TenantTraffic,  # noqa: E402
+                                      multi_tenant_stream, open_loop_stream)
+from repro_torch.serve.qos import (DegradationLadder,  # noqa: E402
+                                   LatencyPredictor, QoSAdmission,
+                                   TenantRegistry, TenantSpec)
 from repro_torch.serve.service import QueryService  # noqa: E402
 from repro_torch.sql import datagen, workloads  # noqa: E402
 from repro_torch.sql.cbo import Estimator  # noqa: E402
@@ -125,6 +164,14 @@ N_LANES = 8
 BWD_ATOL, BWD_RTOL = 1e-5, 1e-4
 TRAIN_EPISODES = 32        # 4 lockstep episode-batches of 8: 4 PPO updates
 TRAIN_LOSS_RTOL = 1e-4     # first update's losses, card against CPU
+LEARN_QUERIES = 48         # the learn phase's stream: the serve's
+LEARN_LOOP = {"update_every": 8, "sample_size": 8, "gate_every": 2,
+              "seed": 5}
+LEARN_LEAF_ATOL = 1e-4     # final serving state, card against CPU
+QOS_QUERIES = 24           # each tenant's stream in the qos phase
+QOS_PRED_RTOL = 1e-5       # each admission prediction, card against CPU
+FIT_LOSS_RTOL = 1e-4       # fit_from_replay's loss, card against CPU
+RUNGS = (1.0, 2.0, 4.0)    # DegradationLadder()'s severity ceilings
 
 
 def emit(obj) -> None:
@@ -483,18 +530,7 @@ def phase_serve(db, wl, meta, params):
     gpu.act_batch = timed_act_batch
 
     margins = []
-    cpu_inner = cpu.act_batch
-
-    def margin_act_batch(feat, left, right, mask, amask, keys, explore=True):
-        with torch.inference_mode():
-            lg = cpu.actor(*(torch.from_numpy(np.ascontiguousarray(x))
-                             for x in (feat, left, right, mask)))
-            lg = lg.masked_fill(~(torch.from_numpy(amask) > 0), -1e9)
-            top = lg.topk(2, dim=-1).values
-            live = torch.from_numpy(np.asarray(mask).sum(axis=1) > 0)
-            margins.extend((top[:, 0] - top[:, 1])[live].tolist())
-        return cpu_inner(feat, left, right, mask, amask, keys, explore)
-    cpu.act_batch = margin_act_batch
+    record_margins(cpu, margins)
 
     tree_conv.tree_cnn_fused_launches = 0
     t0 = time.perf_counter()
@@ -514,22 +550,10 @@ def phase_serve(db, wl, meta, params):
                              "act_batch calls")
     if len(comps) != 48 or len(ref_comps) != 48:
         raise AssertionError(f"{len(comps)}/{len(ref_comps)} completions")
-    logp_diff = 0.0
-    for a, b in zip(comps, ref_comps):
-        same = (a.seq == b.seq and a.traj.actions == b.traj.actions
-                and a.finish_t == b.finish_t and a.lane == b.lane
-                and a.result.failed == b.result.failed)
-        if not same:
-            raise AssertionError(f"seq {a.seq}: card {a.traj.actions} "
-                                 f"{a.finish_t} vs cpu {b.traj.actions} "
-                                 f"{b.finish_t}")
-        if not np.all(np.isfinite(a.traj.logps)):
-            raise AssertionError(f"seq {a.seq}: non-finite logps")
-        if a.traj.logps:
-            logp_diff = max(logp_diff, float(np.max(np.abs(
-                np.subtract(a.traj.logps, b.traj.logps)))))
-    if logp_diff > TOL:
-        raise AssertionError(f"logps differ by {logp_diff}")
+    bad, logp_diff = compare_completions(comps, ref_comps)
+    if bad or logp_diff > TOL:
+        raise AssertionError(f"card and CPU serves differ: {bad}; logps "
+                             f"differ by {logp_diff}")
     # the kernel's time on each act_batch's own input, after the run
     trained = gpu.actor.enc.params()
     per_batch = [kernel_timing(*to_cuda(b), trained, launches=50)
@@ -555,6 +579,61 @@ def phase_serve(db, wl, meta, params):
           "identical_to_cpu": True, "max_logp_diff": logp_diff,
           "min_top2_margin": min(margins)})
     return launches
+
+
+def record_margins(agent, out):
+    """Wrap `agent`'s `act_batch` and `act` so that each live decision
+    appends the top-1/top-2 margin of the scores it takes its action
+    from: the masked logits when greedy, and the Gumbel-perturbed logits
+    `prng.categorical` draws from when exploring. Exact action equality
+    between the card and the CPU only holds while no margin is a near
+    tie."""
+    inner_batch, inner_act = agent.act_batch, agent.act
+
+    def note(feat, left, right, mask, amask, keys=None):
+        with torch.inference_mode():
+            lg = agent.actor(*(agent._tensor(x)
+                               for x in (feat, left, right, mask)))
+            s = lg.masked_fill(~(agent._tensor(amask) > 0), -1e9).cpu()
+        if keys is not None:
+            u = prng.gumbel_uniforms(prng.split(keys)[:, 1], s.shape[-1])
+            s = -torch.log(-torch.log(torch.from_numpy(u))) + s
+        top = s.topk(2, dim=-1).values
+        live = torch.from_numpy(np.asarray(mask).sum(axis=1) > 0)
+        out.extend((top[:, 0] - top[:, 1])[live].tolist())
+
+    def act_batch(feat, left, right, mask, amask, keys, explore=True):
+        note(feat, left, right, mask, amask, keys if explore else None)
+        return inner_batch(feat, left, right, mask, amask, keys,
+                           explore=explore)
+
+    def act(enc, amask, explore=True):
+        if not explore:
+            note(*(np.asarray(x)[None] for x in enc), np.asarray(amask)[None])
+        return inner_act(enc, amask, explore=explore)
+
+    agent.act_batch, agent.act = act_batch, act
+
+
+def compare_completions(comps, ref_comps):
+    """Every pair of completions whose seq, actions, finish time, lane or
+    failure differ (all pairs checked), and the largest logp difference;
+    a non-finite logp counts as a difference."""
+    bad, logp_diff = [], 0.0
+    if len(comps) != len(ref_comps):
+        bad.append(f"{len(comps)} vs {len(ref_comps)} completions")
+    for a, b in zip(comps, ref_comps):
+        if (a.seq, a.traj.actions, a.finish_t, a.lane, a.result.failed) != \
+                (b.seq, b.traj.actions, b.finish_t, b.lane, b.result.failed):
+            bad.append(f"seq {a.seq}: card {a.traj.actions} {a.finish_t} "
+                       f"lane {a.lane} vs cpu {b.traj.actions} {b.finish_t} "
+                       f"lane {b.lane}")
+        if not np.all(np.isfinite(a.traj.logps)):
+            bad.append(f"seq {a.seq}: non-finite logps")
+        elif a.traj.logps:
+            logp_diff = max(logp_diff, float(np.max(np.abs(
+                np.subtract(a.traj.logps, b.traj.logps)))))
+    return bad, logp_diff
 
 
 def leaves_of(agent):
@@ -693,6 +772,303 @@ def phase_train(db, wl, meta, ckpt_tree):
           "checkpoint_restored_equal": True,
           "fresh_seeded_agent_equal_to_cpu": True})
     return launched, gpu.clone(seed=2), last["trajs"]
+
+
+def learn_serve(db, wl, meta, state, device, *, mode="gate",
+                curriculum=True, learning=True, instrument=None):
+    """The learn phase's exploring serve from `state` on 8 async lanes,
+    with the online loop on (`make_online_loop`: harvester, learner, a
+    policy store gating on the first 4 test queries) or off. `instrument`
+    sees the serving agent and the learner before the run. Returns
+    (completions, learner or None, serving agent, wall seconds)."""
+    agent = AqoraAgent(meta, AgentConfig(), seed=0, device=device)
+    install_agent_state(agent, state)
+    hooks, learner = [], None
+    if learning:
+        store_dir = ROOT / "build" / "chip_smoke_store" / \
+            f"{'card' if device is None else device}-{mode}"
+        if store_dir.exists():
+            shutil.rmtree(store_dir)
+        harvester, learner = make_online_loop(
+            agent, store=PolicyStore(store_dir, wl.test[:4], mode=mode),
+            curriculum=AdaptiveCurriculum(window=8, min_dwell=8)
+            if curriculum else None, **LEARN_LOOP)
+        hooks = [harvester, learner]
+    if instrument is not None:
+        instrument(agent, learner)
+    stream = open_loop_stream(wl.test, rate=2.0, n_queries=LEARN_QUERIES,
+                              seed=1)
+    svc = QueryService(db, agent, n_lanes=N_LANES, policy="async",
+                       explore=True, hooks=hooks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comps, _ = svc.run(stream)
+    torch.cuda.synchronize()
+    return comps, learner, agent, time.perf_counter() - t0
+
+
+def gate_rows(store):
+    keys = ("step", "accepted", "swapped", "reason", "candidate_score",
+            "incumbent_score")
+    return [{k: g[k] for k in keys} for g in store.gate_log]
+
+
+def phase_learn(db, wl, meta, ckpt_tree):
+    """The online loop at the default deployment from step 18's full
+    state: served exploring on the card and again on the CPU, then on the
+    card with a shadow-mode store and no curriculum, and with learning
+    off. Every check runs before any fails."""
+    state = agent_state_from_numpy(ckpt_tree)
+    epochs = AgentConfig().ppo_epochs
+    updates, gates = [], []
+
+    def instrument_card(agent, learner):
+        inner_update = learner.agent.ppo_update_batch
+        inner_gate = learner.store.evaluate_and_maybe_swap
+
+        def ppo_update_batch(trajs):
+            f0 = tree_conv.tree_cnn_fused_launches
+            b0 = tree_conv.tree_cnn_fused_bwd_launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = inner_update(trajs)
+            torch.cuda.synchronize()
+            updates.append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "forward_launches": tree_conv.tree_cnn_fused_launches - f0,
+                "backward_launches":
+                    tree_conv.tree_cnn_fused_bwd_launches - b0, **m})
+            return m
+
+        def evaluate_and_maybe_swap(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = inner_gate(*a, **k)
+            torch.cuda.synchronize()
+            gates.append((time.perf_counter() - t0) * 1e3)
+            return rec
+        learner.agent.ppo_update_batch = ppo_update_batch
+        learner.store.evaluate_and_maybe_swap = evaluate_and_maybe_swap
+
+    margins = []
+
+    def instrument_cpu(agent, learner):
+        record_margins(agent, margins)          # exploring serve, probes
+        record_margins(learner.agent, margins)  # the candidate's probes
+
+    tree_conv.tree_cnn_fused_launches = 0
+    tree_conv.tree_cnn_fused_bwd_launches = 0
+    comps, learner, agent, wall = learn_serve(db, wl, meta, state, None,
+                                              instrument=instrument_card)
+    launched = {"tree_cnn_fused": tree_conv.tree_cnn_fused_launches,
+                "tree_cnn_fused_bwd": tree_conv.tree_cnn_fused_bwd_launches}
+    ref_comps, ref_learner, ref_agent, cpu_wall = learn_serve(
+        db, wl, meta, state, "cpu", instrument=instrument_cpu)
+    shadow, shadow_learner, _, shadow_wall = learn_serve(
+        db, wl, meta, state, None, mode="shadow", curriculum=False)
+    off, _, _, off_wall = learn_serve(db, wl, meta, state, None,
+                                      learning=False)
+
+    bad, logp_diff = compare_completions(comps, ref_comps)
+    if logp_diff > TOL:
+        bad.append(f"logps differ by {logp_diff}")
+    stats, ref_stats = learner.stats.as_dict(), ref_learner.stats.as_dict()
+    host_s = stats.pop("host_seconds")
+    ref_stats.pop("host_seconds")
+    if stats != ref_stats:
+        bad.append(f"learner stats: card {stats} cpu {ref_stats}")
+    if not stats["updates"] or not stats["gates"]:
+        bad.append(f"the learner never updated or gated: {stats}")
+    if gate_rows(learner.store) != gate_rows(ref_learner.store):
+        bad.append(f"gate verdicts: card {gate_rows(learner.store)} cpu "
+                   f"{gate_rows(ref_learner.store)}")
+    if learner.curriculum.stats() != ref_learner.curriculum.stats():
+        bad.append(f"curriculum: card {learner.curriculum.stats()} cpu "
+                   f"{ref_learner.curriculum.stats()}")
+    leaves, ref_leaves = leaves_of(agent), leaves_of(ref_agent)
+    leaf_diff = max(float(np.abs(v - ref_leaves[k]).max())
+                    for k, v in leaves.items())
+    if not all(np.isfinite(v).all() for v in leaves.values()) or \
+            not leaf_diff <= LEARN_LEAF_ATOL:
+        bad.append(f"final serving state: max |card - cpu| {leaf_diff}")
+    wrong = [u for u in updates if u["forward_launches"] != 1 + 2 * epochs
+             or u["backward_launches"] != 4 * epochs]
+    if wrong or len(updates) != stats["updates"]:
+        bad.append(f"launches per PPO update: {updates}")
+    same = [(c.seq, c.traj.actions, c.traj.logps, c.finish_t, c.lane,
+             c.result.failed) for c in shadow] == \
+        [(c.seq, c.traj.actions, c.traj.logps, c.finish_t, c.lane,
+          c.result.failed) for c in off]
+    if not same or shadow_learner.stats.swaps or \
+            not shadow_learner.stats.gates:
+        bad.append(f"shadow run: identical to learning-off {same}, "
+                   f"{shadow_learner.stats.as_dict()}")
+    emit({"phase": "learn", "queries": LEARN_QUERIES, **LEARN_LOOP,
+          "learner": stats, "curriculum": learner.curriculum.stats(),
+          "gate_log": gate_rows(learner.store),
+          "update_ms": [u["ms"] for u in updates],
+          "update_ms_mean": float(np.mean([u["ms"] for u in updates]))
+          if updates else None,
+          "gate_ms": gates,
+          "gate_ms_mean": float(np.mean(gates)) if gates else None,
+          "updates": updates, "learner_host_s": host_s,
+          "learner_host_share_of_wall": host_s / wall,
+          "learner_host_s_shadow": shadow_learner.stats.host_seconds,
+          "wall_s_learning_on": wall, "wall_s_shadow": shadow_wall,
+          "wall_s_learning_off": off_wall, "cpu_wall_s": cpu_wall,
+          "launches": launched, "harvested": len(learner.replay),
+          "max_logp_diff": logp_diff, "min_top2_margin": min(margins),
+          "max_leaf_diff": leaf_diff, "leaf_atol": LEARN_LEAF_ATOL,
+          "shadow_identical_to_learning_off": same,
+          "identical_to_cpu": not bad, "mismatches": bad})
+    if bad:
+        raise AssertionError(f"learn phase: {bad}")
+    return launched, state, learner.replay, ref_learner.replay
+
+
+def qos_run(db, wl, meta, state, device):
+    """The two-tenant QoS serve: a `LatencyPredictor` warm-started from
+    the step-18 critic drives `QoSAdmission` (a weighted gold tenant with
+    a 40 s SLO, a rate-limited bulk tenant with 300 s; the standard
+    ladder) on 8 EDF lanes."""
+    agent = AqoraAgent(meta, AgentConfig(), seed=0, device=device)
+    install_agent_state(agent, state)
+    pred = LatencyPredictor(meta, agent=agent)
+    reg = TenantRegistry([
+        TenantSpec("gold", weight=2.0, slo=40.0, cache_bytes=8 << 20),
+        TenantSpec("bulk", weight=1.0, rate=1.5, burst=2, slo=300.0)])
+    adm = QoSAdmission(reg, predictor=pred, ladder=DegradationLadder())
+    severities, calls = [], []
+    choose, predict = adm.ladder.choose, pred.predict_enc
+
+    def noting_choose(predicted, slack, memo_hit=False):
+        severities.append(predicted / slack)
+        return choose(predicted, slack, memo_hit=memo_hit)
+
+    def timed_predict(enc):
+        f0 = tree_conv.tree_cnn_fused_launches
+        t0 = time.perf_counter()
+        p = predict(enc)                     # ends in a device->host copy
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": tree_conv.tree_cnn_fused_launches - f0})
+        return p
+    adm.ladder.choose, pred.predict_enc = noting_choose, timed_predict
+    stream = multi_tenant_stream([
+        TenantTraffic("gold", wl.test, rate=3.0, n_queries=QOS_QUERIES,
+                      seed=31),
+        TenantTraffic("bulk", wl.test, rate=3.0, n_queries=QOS_QUERIES,
+                      seed=32)])
+    svc = QueryService(db, agent, n_lanes=N_LANES, policy="edf",
+                       tenants=reg, admission=adm)
+    comps, stats = svc.run(stream)
+    d = stats.as_dict()
+    d.pop("hook_seconds")                    # host wall time
+    rows = ([(c.seq, c.tenant, c.admit_t, c.finish_t, c.hook_budget,
+              c.degraded, c.lane, c.result.failed, tuple(c.traj.actions))
+             for c in comps],
+            [(r.seq, r.reject_t, r.reason) for r in svc.scheduler.rejections],
+            {k: v for k, v in adm.stats().items() if k != "predictor"}, d)
+    return {"agent": agent, "pred": pred, "rows": rows, "calls": calls,
+            "severities": severities, "predictions": dict(pred._pred_memo)}
+
+
+def qos_fit(pred, replay):
+    """`fit_from_replay` (64 samples, batch 16, 2 epochs) from
+    `default_rng(0)`; each fit step timed to a synchronise, with its
+    backward kernel launches."""
+    steps, inner = [], pred._fit_step
+
+    def fit_step(batch):
+        b0 = tree_conv.tree_cnn_fused_bwd_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = inner(batch)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "backward_launches":
+                          tree_conv.tree_cnn_fused_bwd_launches - b0})
+        return loss
+    pred._fit_step = fit_step
+    sampled = [e.seq for e in replay.sample(min(64, len(replay)),
+                                            np.random.default_rng(0))]
+    loss = pred.fit_from_replay(replay, np.random.default_rng(0),
+                                n_samples=64, batch_size=16, epochs=2)
+    return loss, sampled, steps
+
+
+def phase_qos(db, wl, meta, state, replay, ref_replay):
+    """QoS admission driven by the warm-started predictor, on the card
+    and on the CPU; then both predictors refit from their learn phase's
+    replay buffer. Every check runs before any fails."""
+    tree_conv.tree_cnn_fused_launches = 0
+    tree_conv.tree_cnn_fused_bwd_launches = 0
+    card = qos_run(db, wl, meta, state, None)
+    serve_launches = tree_conv.tree_cnn_fused_launches
+    cpu = qos_run(db, wl, meta, state, "cpu")
+    bad = []
+    for name, got, want in zip(("completions", "rejections", "admission",
+                                "stats"), card["rows"], cpu["rows"]):
+        if got != want:
+            bad.append(f"{name}: card {got} cpu {want}")
+    preds, ref_preds = card["predictions"], cpu["predictions"]
+    pred_rel = max((abs(p - ref_preds[q]) / max(abs(ref_preds[q]), 1e-12)
+                    for q, p in preds.items() if q in ref_preds),
+                   default=float("inf"))
+    if set(preds) != set(ref_preds) or not preds or \
+            not pred_rel <= QOS_PRED_RTOL:
+        bad.append(f"predictions: {len(preds)} vs {len(ref_preds)}, max "
+                   f"relative difference {pred_rel}")
+    if any(c["launches"] != 1 for c in card["calls"]) or \
+            len(card["calls"]) != len(preds):
+        bad.append(f"forward launches per uncached prediction: "
+                   f"{card['calls']}")
+    rung_distance = min((abs(s - r) / r for s in card["severities"]
+                         for r in RUNGS), default=None)
+
+    critic = {k: v.detach().cpu().clone()
+              for k, v in card["agent"].critic.state_dict().items()}
+    f0 = tree_conv.tree_cnn_fused_launches
+    b0 = tree_conv.tree_cnn_fused_bwd_launches
+    loss, sampled, steps = qos_fit(card["pred"], replay)
+    fit_launches = {"tree_cnn_fused": tree_conv.tree_cnn_fused_launches - f0,
+                    "tree_cnn_fused_bwd":
+                        tree_conv.tree_cnn_fused_bwd_launches - b0}
+    ref_loss, ref_sampled, ref_steps = qos_fit(cpu["pred"], ref_replay)
+    loss_rel = abs(loss - ref_loss) / max(abs(ref_loss), 1e-12)
+    if sampled != ref_sampled:
+        bad.append(f"sampled experiences: card {sampled} cpu {ref_sampled}")
+    if not loss_rel <= FIT_LOSS_RTOL or not steps:
+        bad.append(f"fit loss: card {loss} cpu {ref_loss}")
+    if any(s["backward_launches"] != 2 for s in steps) or \
+            len(steps) != len(ref_steps):
+        bad.append(f"backward calls per fit step: {steps}")
+    after = card["agent"].critic.state_dict()
+    if not all(torch.equal(after[k].cpu(), v) for k, v in critic.items()):
+        bad.append("a fit wrote the serving critic")
+    launched = {"tree_cnn_fused": serve_launches
+                + fit_launches["tree_cnn_fused"],
+                "tree_cnn_fused_bwd": fit_launches["tree_cnn_fused_bwd"]}
+    comps, rejections, admission, _ = card["rows"]
+    emit({"phase": "qos", "queries_per_tenant": QOS_QUERIES,
+          "completed": len(comps), "rejected": len(rejections),
+          "admission": admission,
+          "predictions": len(preds),
+          "predict_ms": [c["ms"] for c in card["calls"]],
+          "predict_ms_mean": float(np.mean([c["ms"] for c in card["calls"]]))
+          if card["calls"] else None,
+          "max_prediction_rel_diff": pred_rel, "prediction_rtol":
+          QOS_PRED_RTOL, "min_rung_distance": rung_distance,
+          "fit": {"replay": len(replay), "sampled": len(sampled),
+                  "steps": len(steps), "loss": loss, "cpu_loss": ref_loss,
+                  "loss_rel_diff": loss_rel, "loss_rtol": FIT_LOSS_RTOL,
+                  "step_ms": [s["ms"] for s in steps],
+                  "step_ms_mean": float(np.mean([s["ms"] for s in steps]))
+                  if steps else None},
+          "launches": launched, "identical_to_cpu": not bad,
+          "mismatches": bad})
+    if bad:
+        raise AssertionError(f"qos phase: {bad}")
+    return launched
 
 
 def phase_late_profiles(bwd_timing, agent, trajs):
@@ -1135,6 +1511,9 @@ def main() -> int:
     worst, timing, bwd_worst, bwd_timing = phase_kernels(db, wl, meta, tree)
     launches = phase_serve(db, wl, meta, params_from_numpy(tree))
     train_launches, trained, trajs = phase_train(db, wl, meta, tree)
+    learn_launches, state, replay, ref_replay = phase_learn(db, wl, meta,
+                                                            tree)
+    qos_launches = phase_qos(db, wl, meta, state, replay, ref_replay)
     if args.profile:
         phase_profile(db, wl, meta, params_from_numpy(tree))
     ops_launches, ops_rows = phase_ops(tree, db, wl, meta)
@@ -1143,14 +1522,17 @@ def main() -> int:
         "name": "tree_cnn_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tree_cnn_fused.cu",
         "replaces": "src/repro/kernels/tree_conv.py:224",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches + learn_launches["tree_cnn_fused"]
+        + qos_launches["tree_cnn_fused"], "max_abs_err": worst,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None, "case": "step18/serving"}, {
         "name": "tree_cnn_fused_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tree_cnn_fused_bwd.cu",
         "replaces": "src/repro/kernels/tree_conv.py:202",
-        "launches": train_launches["tree_cnn_fused_bwd"],
+        "launches": train_launches["tree_cnn_fused_bwd"]
+        + learn_launches["tree_cnn_fused_bwd"]
+        + qos_launches["tree_cnn_fused_bwd"],
         "max_abs_err": bwd_worst,
         **{k: bwd_timing["step18/ppo-actor/B24/N48"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},

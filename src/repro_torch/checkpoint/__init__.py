@@ -2,7 +2,7 @@
 reference's checkpoints (`MANIFEST.json` + one `.npy` per leaf, each with
 the sha1 of its bytes), carries its trees across to the port's networks
 and AdamW states, and writes the same layout (`Checkpointer`)."""
-from repro_torch.checkpoint.agent_io import (agent_state, copy_tree,
+from repro_torch.checkpoint.agent_io import (agent_state,
                                              install_agent_state,
                                              params_finite)
 from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -12,5 +12,5 @@ from repro_torch.checkpoint.reference import (agent_state_from_numpy,
                                               params_from_numpy)
 
 __all__ = ["Checkpointer", "agent_state", "agent_state_from_numpy",
-           "agent_state_to_numpy", "copy_tree", "install_agent_state",
+           "agent_state_to_numpy", "install_agent_state",
            "load_reference_checkpoint", "params_finite", "params_from_numpy"]

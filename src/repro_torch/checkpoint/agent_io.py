@@ -8,10 +8,11 @@ are the reference's ("actor/enc/conv1/wr", "aopt/m/head/w2",
 checkpoint restores on either side; `install_agent_state` puts such a
 tree back onto a live agent.
 
-`install_agent_state` deep-copies: the PPO update writes the
-parameters and moments in place, so a source and its target must not
-share tensors. Parameters go into the agent's own `nn.Parameter`s, and
-the AdamW tensors onto its device.
+`install_agent_state` deep-copies by default (`copy=True`, the
+reference's keyword): the PPO update writes the parameters and moments
+in place, so a source and its target must not share tensors. Parameters
+always go into the agent's own `nn.Parameter`s, and the AdamW tensors
+onto its device.
 """
 from __future__ import annotations
 
@@ -30,23 +31,23 @@ def agent_state(agent) -> Dict:
             "aopt": agent.aopt, "copt": agent.copt}
 
 
-def copy_tree(tree):
-    """Deep-copy every leaf."""
-    return tree_map(lambda x: torch.as_tensor(x).detach().clone(), tree)
-
-
-def install_agent_state(agent, tree: Dict) -> None:
-    """Put a deep copy of `tree` (from `agent_state`,
-    `Checkpointer.restore` or `reference.agent_state_from_numpy`) onto
-    `agent`."""
-    tree = copy_tree(tree)
+def install_agent_state(agent, tree: Dict, copy: bool = True) -> None:
+    """Put `tree` (from `agent_state`, `Checkpointer.restore` or
+    `reference.agent_state_from_numpy`) onto `agent`. Parameters are
+    written into the agent's own `nn.Parameter`s either way. With
+    copy=True (default) the AdamW tensors are copied too, so no tensor of
+    `tree` is shared with the agent afterwards; with copy=False an AdamW
+    tensor already on the agent's device is taken as it is."""
     dev = agent.device
     with torch.no_grad():
         for net in ("actor", "critic"):
             tree_map(lambda p, x: p.copy_(torch.as_tensor(x)),
                      param_tree(getattr(agent, net)), tree[net])
-    agent.aopt = tree_map(lambda x: torch.as_tensor(x).to(dev), tree["aopt"])
-    agent.copt = tree_map(lambda x: torch.as_tensor(x).to(dev), tree["copt"])
+
+    def opt(x):
+        return torch.as_tensor(x).to(dev, copy=copy)
+    agent.aopt = tree_map(opt, tree["aopt"])
+    agent.copt = tree_map(opt, tree["copt"])
 
 
 def params_finite(agent) -> bool:

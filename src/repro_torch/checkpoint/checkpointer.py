@@ -9,7 +9,9 @@ write falls back to the step before) and rebuilds `tree_like`'s
 structure from the leaf paths; `keep_last` prunes older steps. So a
 checkpoint the port writes restores in the reference and the other way
 round. Leaves are saved from tensors (or arrays) and restored as CPU
-tensors. `save` writes synchronously.
+tensors. `save` writes synchronously, so there is never a write in
+flight: the reference's `blocking=False` and `wait` are not ported yet
+(their one caller is the LM trainer, `launch/train.py`, ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -62,6 +64,13 @@ class Checkpointer:
         tmp.rename(d)
         self._prune()
         return True
+
+    def next_step(self, hint: int = 0) -> int:
+        """Smallest step >= `hint` that is strictly newer than every step
+        on disk: safe to save() (no silent skip-existing) and the newest
+        once saved, so restore() picks it up. `save` is synchronous, so
+        no step is in flight to count."""
+        return max([hint] + [s + 1 for s in self.steps()])
 
     # ------------------------------------------------------------- restore
     def steps(self) -> List[int]:

@@ -201,10 +201,10 @@ class LaneScheduler:
         self.window = None if policy == "lockstep" else window
         self.reuse_stages = reuse_stages
         if admission is None and policy == "edf":
-            raise NotImplementedError(
-                "policy='edf' needs the QoS admission plane "
-                "(serve.qos.admission.EdfPolicy), which the serving "
-                "control-plane slice ports (ROADMAP Queue A10)")
+            # lazy: scheduler must stay importable without pulling the
+            # whole qos package at module load
+            from repro_torch.serve.qos.admission import EdfPolicy
+            admission = EdfPolicy()
         self.admission = admission
         self.lanes = [_Lane(i) for i in range(n_lanes)]
         self.completions: List[Completion] = []

@@ -4,8 +4,8 @@
   module (checked in a fresh interpreter);
 * every numpy/pure-Python module the port copies from `repro` equals the
   reference source after `repro.` -> `repro_torch.`, apart from the short
-  explicit allow-list below (the two not-yet-ported plane seams and the
-  jax-free `as_key`) and comments that named project history;
+  explicit allow-list below (the not-yet-ported observability seam and
+  the jax-free `as_key`) and comments that named project history;
 * `AqoraAgent` without a device asks for CUDA and raises without it.
 """
 import os
@@ -31,12 +31,17 @@ COPIES = (
     "core/vec_rollout.py",
     "serve/deltas.py", "serve/scheduler.py", "serve/service.py",
     "serve/driver.py",
+    "learn/__init__.py", "learn/replay.py", "learn/harvest.py",
+    "learn/curriculum.py", "learn/policy_store.py", "learn/learner.py",
+    "serve/qos/__init__.py", "serve/qos/tenancy.py", "serve/qos/degrade.py",
+    "serve/qos/admission.py",
 )
 
 # Comments in the reference that name project history ("the PR-n path")
 # are reworded in the copies; nothing else changes but these seams.
 HISTORY = ((re.compile(r"PR-\d+(?:\.\.\d+)?(?:/PR-\d+)?"), "original"),
-           (re.compile(r"seed PR\b"), "seed"))
+           (re.compile(r"seed PR\b"), "seed"),
+           (re.compile(r" \(PR \d+\)"), ""))
 
 # (reference snippet, port snippet) per file, applied after the rename
 ALLOWED = {
@@ -47,15 +52,6 @@ ALLOWED = {
          "from repro_torch.core.prng import prng_key\n"),
         ("        return np.asarray(jax.random.PRNGKey(int(key)), np.uint32)\n",
          "        return prng_key(int(key))\n")],
-    "serve/scheduler.py": [
-        ("            # lazy: scheduler must stay importable without pulling the\n"
-         "            # whole qos package at module load\n"
-         "            from repro_torch.serve.qos.admission import EdfPolicy\n"
-         "            admission = EdfPolicy()\n",
-         "            raise NotImplementedError(\n"
-         "                \"policy='edf' needs the QoS admission plane \"\n"
-         "                \"(serve.qos.admission.EdfPolicy), which the serving \"\n"
-         "                \"control-plane slice ports (ROADMAP Queue A10)\")\n")],
     "serve/service.py": [
         ("            from repro_torch.serve.obs import Tracer\n"
          "            obs = Tracer()\n",

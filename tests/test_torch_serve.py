@@ -32,7 +32,7 @@ from repro_torch.core.agent import AgentConfig, AqoraAgent  # noqa: E402
 from repro_torch.core.encoding import WorkloadMeta  # noqa: E402
 from repro_torch.core.rollout import rollout  # noqa: E402
 from repro_torch.serve.driver import open_loop_stream  # noqa: E402
-from repro_torch.serve.scheduler import LaneScheduler  # noqa: E402
+from repro_torch.serve.scheduler import Arrival, LaneScheduler  # noqa: E402
 from repro_torch.serve.service import QueryService  # noqa: E402
 from repro_torch.sql import datagen, workloads  # noqa: E402
 from repro_torch.sql.cbo import Estimator  # noqa: E402
@@ -125,9 +125,17 @@ def test_lockstep_serves_the_same_plans(port_world):
 
 
 def test_unported_planes_raise(port_world):
-    db, _, agent = port_world
-    with pytest.raises(NotImplementedError, match="edf"):
-        LaneScheduler(db, Estimator(db, db.stats), agent, policy="edf")
+    """`monitor=` without `obs=` still needs the observability plane;
+    `policy="edf"` serves through the ported QoS plane's EdfPolicy: of
+    three queries arriving together on one lane, the earliest deadline
+    is admitted first."""
+    db, wl, agent = port_world
+    sched = LaneScheduler(db, Estimator(db, db.stats), agent, n_lanes=1,
+                          policy="edf")
+    comps = sched.run([Arrival(0.0, query=wl.test[i], seed=i, deadline=dl)
+                       for i, dl in enumerate((30.0, 10.0, 20.0))])
+    assert [c.seq for c in sorted(comps, key=lambda c: c.admit_t)] == \
+        [1, 2, 0]
     with pytest.raises(NotImplementedError, match="monitor"):
         QueryService(db, agent, monitor=object())
 
