@@ -68,6 +68,41 @@ Phases, each printing one JSON line:
            side's learn-phase replay buffer from `default_rng(0)`: the
            same experiences, losses within FIT_LOSS_RTOL, one backward
            call (2 launches) per fit step, the serving critic untouched;
+  control  the serving cell under every control plane, on the card and
+           on the CPU: JOB-like db at scale 0.25 with a young movie_info
+           (90% deleted, then ANALYZEd), the serve's 48-query stream with
+           one growth delta of 24x movie_info's young rows after query 24;
+           step 18's full state on 8 async lanes; bench_faults' `full`
+           recovery arm (seeded chaos, retries, hedges against a
+           `LatencyPredictor` warm-started from the step-18 critic, a
+           breaker over the run's policy store); a tracer and an SLO
+           watchdog (alerts unwired); the drift controller (threshold
+           re-ANALYZE at CONTROL_REFRESH, refits of the predictor from a
+           harvester's replay); plan memory and its superoptimizer on the
+           watchdog's plan ledger. Completions, recovery, drift,
+           plan-memory and superoptimizer stats, promotions, incidents,
+           breaker trips and the trace export must be identical (the
+           trace's fields from a card float, TRACE_FLOAT_KEYS, within
+           CONTROL_PRED_RTOL; its host-clock fields: none; the stats'
+           host-clock fields are left out), predictions within
+           CONTROL_PRED_RTOL, refit losses within REFIT_LOSS_RTOL; one
+           encoder launch per act_batch and per uncached prediction, none
+           for a memoized hit, one forward and 2 backward launches per
+           refit fit step. The card's run without the tracer and the
+           watchdog must give the same completions bit for bit; the
+           breaker's rollback on the card restores every committed tensor
+           bit for bit; `serve.obs.export` and `serve.obs.report`'s
+           selftests pass on the card under build/. The line gives the
+           walls, the tracer's host cost, ms per prediction and refit,
+           the superoptimizer's host seconds and each compared float's
+           smallest relative distance from its threshold;
+  gen      bench_generalize's serving world (`sample_world(202,
+           family="person", scale=0.07, ...)`, 72 queries) served by a
+           fresh seeded agent on 4 lanes under the world's fault injector
+           and a retry ladder, greedy and then exploring (each on a
+           freshly sampled world), on the card and on the CPU: completions
+           and table versions identical, log-probabilities within TOL,
+           one encoder launch per act_batch;
   ops      the `kernels.ops` path at full model widths from the reference's
            configs (src/repro/configs): `mha_flash` at qwen3-8b prefill,
            decode, a 4-query suffix and fp32 and at gemma2-27b's
@@ -101,12 +136,12 @@ line gives the device's busy time by kernel and its idle share of the
 wall time.
 
 Then the kernels summary line (the encoder rows' launches sum the serve,
-learn and qos phases', and the train, learn and qos phases' for the
-backward), the `nvidia-smi` line, and the result line
-`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero
-(the learn and qos phases check every case first and name each
-mismatch); without CUDA the script exits non-zero before printing any
-result.
+learn, qos, control and gen phases', and the train, learn, qos and
+control phases' for the backward), the `nvidia-smi` line, and the result
+line `{"ok": true, "device": {...}}`. Any failure raises and exits
+non-zero (the learn, qos, control and gen phases check every case first
+and name each mismatch); without CUDA the script exits non-zero before
+printing any result.
 """
 from __future__ import annotations
 
@@ -135,18 +170,31 @@ from repro_torch.core.agent import (AgentConfig, AqoraAgent,  # noqa: E402
                                     _node_bucket)
 from repro_torch.core.encoding import WorkloadMeta, encode_state  # noqa: E402
 from repro_torch.core.train_loop import train_agent  # noqa: E402
+from repro_torch.gen.world import sample_world  # noqa: E402
 from repro_torch.kernels import build, ops, ref, tree_conv  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.learn import (AdaptiveCurriculum, PolicyStore,  # noqa: E402
-                               make_online_loop)
+                               TrajectoryHarvester, make_online_loop)
+from repro_torch.serve.deltas import DeltaBatch, apply_delta  # noqa: E402
+from repro_torch.serve.drift import DriftController, RefreshPolicy  # noqa: E402
 from repro_torch.serve.driver import (TenantTraffic,  # noqa: E402
                                       multi_tenant_stream, open_loop_stream)
+from repro_torch.serve.obs import SloMonitor, Tracer  # noqa: E402
+from repro_torch.serve.obs import export as obs_export  # noqa: E402
+from repro_torch.serve.obs import report as obs_report  # noqa: E402
+from repro_torch.serve.plans import PlanMemory, Superoptimizer  # noqa: E402
 from repro_torch.serve.qos import (DegradationLadder,  # noqa: E402
                                    LatencyPredictor, QoSAdmission,
                                    TenantRegistry, TenantSpec)
+from repro_torch.serve.recover import (FaultInjector,  # noqa: E402
+                                       HedgePolicy, PolicyBreaker,
+                                       RecoveryManager, RetryPolicy,
+                                       ScriptedFaults)
+from repro_torch.serve.scheduler import Arrival, LaneScheduler  # noqa: E402
 from repro_torch.serve.service import QueryService  # noqa: E402
 from repro_torch.sql import datagen, workloads  # noqa: E402
+from repro_torch.sql.catalog import analyze  # noqa: E402
 from repro_torch.sql.cbo import Estimator  # noqa: E402
 from repro_torch.sql.executor import AdaptiveRun  # noqa: E402
 from repro_torch.sql.plans import syntactic_plan  # noqa: E402
@@ -172,6 +220,22 @@ QOS_QUERIES = 24           # each tenant's stream in the qos phase
 QOS_PRED_RTOL = 1e-5       # each admission prediction, card against CPU
 FIT_LOSS_RTOL = 1e-4       # fit_from_replay's loss, card against CPU
 RUNGS = (1.0, 2.0, 4.0)    # DegradationLadder()'s severity ceilings
+CONTROL_SCALE = 0.25       # the control phase's db: the serving cell's
+CONTROL_GROWTH_X = 24      # movie_info grows by 24x its young rows ...
+CONTROL_DRIFT_AT = 24      # ... after query 24 of the 48
+CONTROL_PRED_RTOL = 1e-5   # each prediction, card against CPU
+REFIT_LOSS_RTOL = 1e-4     # each refit's loss, card against CPU
+# the re-ANALYZE threshold: above the score the growth delta gives
+# movie_info at its own barrier (24.0 in a CPU run), so the predictor's
+# refits (peak score >= 1) come first; the failed retries' regret later
+# lifts the score to 43.8 and the re-ANALYZE follows. At the default 1.0
+# it lands at the delta's barrier and no refit can fire after it.
+CONTROL_REFRESH = 30.0
+TRACE_FLOAT_KEYS = ("peak_score",)   # trace fields computed from a card float
+GEN_WORLD = {"family": "person", "scale": 0.07, "n_templates": 8,
+             "n_train": 24, "n_test_per_template": 1, "t_min": 3,
+             "t_max": 5, "n_queries": 72}   # bench_generalize's serving world
+GEN_SEED, GEN_LANES = 202, 4
 
 
 def emit(obj) -> None:
@@ -1071,6 +1135,488 @@ def phase_qos(db, wl, meta, state, replay, ref_replay):
     return launched
 
 
+# ------------------------------------------------------------ control
+def control_world(wl):
+    """The serving cell's db with a young movie_info (90% of its rows
+    deleted, then ANALYZEd: bench_drift's build), and the serve's 48-query
+    stream with one growth delta of CONTROL_GROWTH_X times movie_info's
+    young rows after query CONTROL_DRIFT_AT. Built fresh for every run:
+    the delta and the re-ANALYZE mutate the db."""
+    db = datagen.make_job_like(scale=CONTROL_SCALE, seed=0)
+    apply_delta(db, DeltaBatch("movie_info", delete_frac=0.9, seed=7))
+    db.stats = analyze(db, rng=np.random.default_rng(0))
+    stream = open_loop_stream(wl.test, rate=2.0, n_queries=48, seed=1)
+    rows = CONTROL_GROWTH_X * db.table("movie_info").nrows
+    stream.insert(CONTROL_DRIFT_AT, Arrival(
+        stream[CONTROL_DRIFT_AT - 1].t,
+        delta=DeltaBatch("movie_info", n_append=rows, seed=999)))
+    return db, stream, rows
+
+
+def rel_distance(value, threshold) -> float:
+    return abs(value - threshold) / max(abs(threshold), 1e-12)
+
+
+def control_run(wl, meta, state, device, *, obs=True):
+    """The serving cell under every control plane: bench_faults' `full`
+    recovery arm (seeded chaos, the retry ladder, hedges against a
+    predictor warm-started from the step-18 critic, a breaker over the
+    run's policy store), a tracer and an SLO watchdog (alerts unwired),
+    the drift controller (threshold re-ANALYZE, refits of the same
+    predictor from the harvested replay), plan memory and its
+    superoptimizer reading the watchdog's plan ledger. `obs=False` drops
+    the tracer and the watchdog (the superoptimizer then counts its own
+    heat). Every float compared against a threshold is recorded with its
+    relative distance from it."""
+    db, stream, rows = control_world(wl)
+    agent = AqoraAgent(meta, AgentConfig(), seed=0, device=device)
+    install_agent_state(agent, state)
+    pred = LatencyPredictor(meta, agent=agent)
+    side = "card" if device is None else device
+    store_dir = ROOT / "build" / "chip_smoke_control" / \
+        f"{side}-{'obs' if obs else 'noobs'}"
+    if store_dir.exists():
+        shutil.rmtree(store_dir)
+    store = PolicyStore(store_dir, wl.test[:4], mode="gate")
+    store.commit(agent, 18)
+    harvester = TrajectoryHarvester()
+    hedge = HedgePolicy(factor=4.0, predictor=pred)
+    mgr = RecoveryManager(
+        injector=FaultInjector(seed=23, p_crash=0.01, p_transient=0.03,
+                               p_slow=0.06, p_corrupt=0.03,
+                               slow_factor=(8, 48)),
+        retry=RetryPolicy(max_attempts=3, backoff=0.5), hedge=hedge,
+        breaker=PolicyBreaker(store, agent))
+    tracer = Tracer() if obs else None
+    monitor = SloMonitor(store=store) if obs else None
+    ctl = DriftController(policy=RefreshPolicy("threshold",
+                                               threshold=CONTROL_REFRESH),
+                          replay=harvester.replay, predictor=pred,
+                          store=store)
+    memory = PlanMemory()
+    superopt = Superoptimizer(memory, ledger=None if monitor is None
+                              else monitor.ledger)
+    rec = {"predictions": [], "refits": [], "fit_steps": [], "acts": [],
+           "hedge_distances": [], "refit_distances": [],
+           "refresh_distances": [], "margins": []}
+
+    def forwards():
+        return tree_conv.tree_cnn_fused_launches
+
+    def backwards():
+        return tree_conv.tree_cnn_fused_bwd_launches
+
+    predict_enc, refit, fit_step = (pred.predict_enc, pred.refit_on_drift,
+                                    pred._fit_step)
+
+    def timed_predict(enc):
+        f0, t0 = forwards(), time.perf_counter()
+        p = predict_enc(enc)                 # ends in a device->host copy
+        rec["predictions"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                                   "launches": forwards() - f0, "value": p})
+        return p
+
+    def timed_refit(*a, **k):
+        f0, b0, n0 = forwards(), backwards(), len(rec["fit_steps"])
+        sync(device)
+        t0 = time.perf_counter()
+        loss = refit(*a, **k)
+        sync(device)
+        rec["refits"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                              "loss": float(loss),
+                              "fit_steps": len(rec["fit_steps"]) - n0,
+                              "forward_launches": forwards() - f0,
+                              "backward_launches": backwards() - b0,
+                              "generation": pred.generation})
+        return loss
+
+    def counted_fit_step(batch):
+        b0 = backwards()
+        loss = fit_step(batch)
+        rec["fit_steps"].append(backwards() - b0)
+        return loss
+    pred.predict_enc, pred.refit_on_drift = timed_predict, timed_refit
+    pred._fit_step = counted_fit_step
+
+    should_hedge = hedge.should_hedge
+
+    def noting_hedge(lane, n_launched):
+        p = hedge.predicted(lane)
+        if p is not None:
+            rec["hedge_distances"].append(rel_distance(
+                lane.state.elapsed, hedge.factor * p))
+        return should_hedge(lane, n_launched)
+    hedge.should_hedge = noting_hedge
+
+    score = ctl.detector.score
+
+    def noting_score(db_):
+        drifts = score(db_)
+        peak = max((d.score for d in drifts.values()), default=0.0)
+        rec["refit_distances"].append(rel_distance(peak,
+                                                   ctl.refit_threshold))
+        rec["refresh_distances"].extend(
+            rel_distance(d.score, ctl.policy.threshold)
+            for d in drifts.values() if d.version_lag > 0)
+        return drifts
+    ctl.detector.score = noting_score
+
+    if device == "cpu":
+        record_margins(agent, rec["margins"])
+    act_batch = agent.act_batch
+
+    def counted_act_batch(*a, **k):
+        f0 = forwards()
+        out = act_batch(*a, **k)
+        rec["acts"].append(forwards() - f0)
+        return out
+    agent.act_batch = counted_act_batch
+
+    svc = QueryService(db, agent, n_lanes=N_LANES, policy="async",
+                       recovery=mgr, obs=tracer, monitor=monitor,
+                       plan_memory=memory,
+                       hooks=[harvester, ctl, superopt])
+    f0, b0 = forwards(), backwards()
+    sync(device)
+    t0 = time.perf_counter()
+    comps, stats = svc.run(stream)
+    sync(device)
+    wall = time.perf_counter() - t0
+    trace = []
+    if tracer is not None:
+        path = store_dir / "trace.jsonl"
+        obs_export.write_trace_jsonl(tracer, str(path))
+        trace = [json.loads(line) for line in path.read_text().splitlines()]
+    drift = ctl.summary()
+    host = {"analyze_wall_s": drift.pop("analyze_wall_s"),
+            "drift_host_s": drift.pop("host_seconds")}
+    so_stats = superopt.stats.as_dict()
+    host["superopt_host_s"] = so_stats.pop("host_seconds")
+    serve_stats = stats.as_dict()
+    serve_stats.pop("hook_seconds")          # host wall time
+    refit_log = [{k: v for k, v in r.items() if k != "loss"}
+                 for r in pred.refit_log]
+    return {
+        "comps": comps, "wall": wall, "host": host, "trace": trace,
+        "rows_appended": rows, "launches": {"tree_cnn_fused": forwards() - f0,
+                                            "tree_cnn_fused_bwd":
+                                                backwards() - b0},
+        "same": {"recovery": mgr.stats.as_dict(), "drift": drift,
+                 "refresh_log": ctl.refresh_log, "refit_log": refit_log,
+                 "task_log": svc.scheduler.task_log,
+                 "plan_memory": memory.stats(),
+                 "promotions": superopt.promote_log, "superopt": so_stats,
+                 "incidents": [i.as_dict() for i in monitor.incidents]
+                 if monitor is not None else None,
+                 "breaker_trips": mgr.breaker.trips, "service": serve_stats,
+                 "versions": dict(db.versions)},
+        **rec}
+
+
+def sync(device) -> None:
+    if device is None:
+        torch.cuda.synchronize()
+
+
+def completion_rows(comps):
+    """What a completion decides: actions, finish time, failure kind,
+    attempts, hedged, memoized, lane (and the rest of the outcome)."""
+    return [(c.seq, c.query.name, tuple(c.traj.actions), c.admit_t,
+             c.finish_t, c.lane, c.result.failed, c.result.failure_kind,
+             c.failure_kind, c.attempts, c.recovered, c.hedged, c.memoized,
+             c.first_admit_t) for c in comps]
+
+
+def trace_mismatches(got, want, rtol=CONTROL_PRED_RTOL, path="trace"):
+    """Where two trace exports differ: every field equal, but those in
+    TRACE_FLOAT_KEYS (computed from a card float), which agree within
+    `rtol` relative."""
+    if isinstance(got, dict) and isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{path}: keys {sorted(got)} vs {sorted(want)}"]
+        out = []
+        for k in got:
+            if k in TRACE_FLOAT_KEYS and isinstance(got[k], float):
+                if not rel_distance(got[k], want[k]) <= rtol:
+                    out.append(f"{path}.{k}: {got[k]} vs {want[k]}")
+            else:
+                out += trace_mismatches(got[k], want[k], rtol, f"{path}.{k}")
+        return out
+    if isinstance(got, list) and isinstance(want, list):
+        if len(got) != len(want):
+            return [f"{path}: {len(got)} vs {len(want)} items"]
+        return [m for i, (a, b) in enumerate(zip(got, want))
+                for m in trace_mismatches(a, b, rtol, f"{path}[{i}]")]
+    return [] if got == want else [f"{path}: {got!r} vs {want!r}"]
+
+
+def breaker_rollback(wl, meta, state, device=None):
+    """The breaker's rollback on the card: the step-18 agent committed as
+    step 18, every parameter moved (+1e-3) and committed as step 19
+    after the eighth completion, then every query admitted after the
+    swap fails on every stage: the breaker trips, the store reinstalls
+    step 18, and every tensor the kernels read must equal the committed
+    one bit for bit; the restored agent's next act_batch launches the
+    encoder and takes the committed agent's actions."""
+    db = datagen.make_job_like(scale=CONTROL_SCALE, seed=0)
+    agent = AqoraAgent(meta, AgentConfig(), seed=0, device=device)
+    install_agent_state(agent, state)
+    committed = {k: v.detach().clone() for k, v in
+                 flatten(agent_state(agent)) if isinstance(v, torch.Tensor)}
+    store_dir = ROOT / "build" / "chip_smoke_control" / "breaker"
+    if store_dir.exists():
+        shutil.rmtree(store_dir)
+    store = PolicyStore(store_dir, [], mode="gate")
+    store.commit(agent, 18)
+    n = 16
+    faults = ScriptedFaults(stage={(s, 1, k): "transient"
+                                   for s in range(8, n) for k in range(8)})
+    brk = PolicyBreaker(store, agent, window=8, min_post=4, cooldown=5)
+    sched = LaneScheduler(db, Estimator(db, db.stats), agent, n_lanes=1,
+                          recovery=RecoveryManager(injector=faults,
+                                                   breaker=brk))
+
+    def swapper(comp):
+        if comp.seq == 7 and store.serving_step == 18:
+            with torch.no_grad():
+                for p in list(agent.actor.parameters()) + \
+                        list(agent.critic.parameters()):
+                    p.add_(1e-3)
+            store.commit(agent, 19)
+    sched.on_complete.insert(0, swapper)
+    comps = sched.run([Arrival(0.3 * i, query=wl.test[i % len(wl.test)],
+                               seed=i + 1) for i in range(n)])
+    restored = {k: v for k, v in flatten(agent_state(agent))
+                if isinstance(v, torch.Tensor)}
+    bad = []
+    if len(brk.trips) != 1 or store.serving_step != 18:
+        bad.append(f"breaker trips {brk.trips}, serving step "
+                   f"{store.serving_step}")
+    differ = [k for k, v in committed.items()
+              if k not in restored or not torch.equal(restored[k], v)]
+    on_card = all(v.device.type == agent.device.type
+                  for k, v in restored.items()
+                  if k.startswith(("actor", "critic")))
+    if differ or not on_card:
+        bad.append(f"rollback: {len(differ)} tensors differ from the "
+                   f"committed state ({differ[:4]}), parameters on the "
+                   f"card: {on_card}")
+    batch = serving_batch(db, wl, meta)
+    ref_agent = AqoraAgent(meta, AgentConfig(), seed=0, device=device)
+    install_agent_state(ref_agent, state)
+    f0 = tree_conv.tree_cnn_fused_launches
+    amask = np.ones((N_LANES, agent.space.d), np.float32)
+    keys = np.zeros((N_LANES, 2), np.uint32)
+    acts = agent.act_batch(*batch, amask, keys, explore=False)[0]
+    launched = tree_conv.tree_cnn_fused_launches - f0
+    want = ref_agent.act_batch(*batch, amask, keys, explore=False)[0]
+    if launched != (device is None) or not np.array_equal(acts, want):
+        bad.append(f"restored act_batch: {launched} launches, actions "
+                   f"{acts.tolist()} vs committed {want.tolist()}")
+    return {"completions": len(comps), "trips": brk.trips,
+            "tensors_checked": len(committed),
+            "restored_bit_equal": not differ}, bad
+
+
+def phase_control(wl, meta, state, card=None):
+    """The control planes at the serving cell, served on the card and on
+    the CPU, then on the card without the observability plane; the
+    breaker's rollback on the card; both observability selftests on the
+    card. Every check runs before any fails."""
+    tree_conv.tree_cnn_fused_launches = 0
+    tree_conv.tree_cnn_fused_bwd_launches = 0
+    got = control_run(wl, meta, state, card)
+    launched = dict(got["launches"])
+    want = control_run(wl, meta, state, "cpu")
+    off = control_run(wl, meta, state, card, obs=False)
+    bad = []
+    if completion_rows(got["comps"]) != completion_rows(want["comps"]):
+        bad.append("completions differ: " + "; ".join(
+            f"card {a} cpu {b}" for a, b in zip(
+                completion_rows(got["comps"]),
+                completion_rows(want["comps"])) if a != b))
+    _, logp_diff = compare_completions(got["comps"], want["comps"])
+    if not logp_diff <= TOL:
+        bad.append(f"logps differ by {logp_diff}")
+    for name, value in got["same"].items():
+        if value != want["same"][name]:
+            bad.append(f"{name}: card {value} cpu {want['same'][name]}")
+    bad += trace_mismatches(got["trace"], want["trace"])[:20]
+    values = [p["value"] for p in got["predictions"]]
+    ref_values = [p["value"] for p in want["predictions"]]
+    pred_rel = max((rel_distance(a, b) for a, b in zip(values, ref_values)),
+                   default=0.0)
+    if len(values) != len(ref_values) or not values or \
+            not pred_rel <= CONTROL_PRED_RTOL:
+        bad.append(f"predictions: {len(values)} vs {len(ref_values)}, max "
+                   f"relative difference {pred_rel}")
+    losses = [r["loss"] for r in got["refits"]]
+    ref_losses = [r["loss"] for r in want["refits"]]
+    loss_rel = max((rel_distance(a, b) for a, b in zip(losses, ref_losses)),
+                   default=0.0)
+    if len(losses) != len(ref_losses) or not losses or \
+            not loss_rel <= REFIT_LOSS_RTOL:
+        bad.append(f"refits: {len(losses)} vs {len(ref_losses)}, losses "
+                   f"{losses} vs {ref_losses}")
+    steps = sum(r["fit_steps"] for r in got["refits"])
+    if any(p["launches"] != 1 for p in got["predictions"]) or \
+            any(n != 1 for n in got["acts"]) or \
+            any(n != 2 for n in got["fit_steps"]) or \
+            any(r["forward_launches"] != r["fit_steps"]
+                for r in got["refits"]) or \
+            launched["tree_cnn_fused"] != len(got["acts"]) + \
+            len(values) + steps or \
+            launched["tree_cnn_fused_bwd"] != 2 * steps:
+        bad.append(f"launches {launched}: act_batch {got['acts']}, "
+                   f"predictions {[p['launches'] for p in got['predictions']]}"
+                   f", fit steps {got['fit_steps']}")
+    # a replayed plan records no action masks and no log-probabilities:
+    # the policy was never asked
+    memoized = [c for c in got["comps"] if c.memoized]
+    if not memoized or any(c.traj.masks or any(c.traj.logps)
+                           for c in memoized):
+        bad.append(f"{len(memoized)} memoized completions, some decided "
+                   "by the policy")
+    same_off = [(r, tuple(c.traj.logps)) for r, c in zip(
+        completion_rows(off["comps"]), off["comps"])] == \
+        [(r, tuple(c.traj.logps)) for r, c in zip(
+            completion_rows(got["comps"]), got["comps"])]
+    if not same_off:
+        bad.append("the card's completions with obs off differ from obs on")
+    breaker, breaker_bad = breaker_rollback(wl, meta, state, card)
+    bad += breaker_bad
+    selftests = {}
+    for name, mod in (("export", obs_export), ("report", obs_report)):
+        path = ROOT / "build" / "chip_smoke_control" / f"{name}.jsonl"
+        f0 = tree_conv.tree_cnn_fused_launches
+        rc = mod._selftest(str(path))
+        selftests[name] = {"rc": rc, "launches":
+                           tree_conv.tree_cnn_fused_launches - f0}
+        if rc != 0 or (card is None and selftests[name]["launches"] == 0):
+            bad.append(f"obs {name} selftest: {selftests[name]}")
+    walls = {"card_obs_on": got["wall"], "card_obs_off": off["wall"],
+             "cpu": want["wall"]}
+    mean = lambda xs: float(np.mean(xs)) if xs else None  # noqa: E731
+    emit({"phase": "control", "queries": 48,
+          "growth_rows_appended": got["rows_appended"],
+          "completed": len(got["comps"]),
+          "failed": sum(c.result.failed for c in got["comps"]),
+          "memoized": len(memoized),
+          "hedged": sum(c.hedged for c in got["comps"]),
+          "recovery": got["same"]["recovery"],
+          "drift": got["same"]["drift"], "refit_log": got["same"]["refit_log"],
+          "plan_memory": got["same"]["plan_memory"],
+          "superopt": got["same"]["superopt"],
+          "incidents": len(got["same"]["incidents"] or []),
+          "breaker_trips": len(got["same"]["breaker_trips"]),
+          "trace_records": len(got["trace"]),
+          "wall_s": walls, "cpu_wall_s": want["wall"],
+          "tracer_host_cost_s": got["wall"] - off["wall"],
+          "host_clock": got["host"],
+          "superopt_host_s": got["host"]["superopt_host_s"],
+          "predictions": len(values),
+          "predict_ms_mean": mean([p["ms"] for p in got["predictions"]]),
+          "refits": len(losses),
+          "refit_ms": [r["ms"] for r in got["refits"]],
+          "refit_ms_mean": mean([r["ms"] for r in got["refits"]]),
+          "refit_fit_steps": [r["fit_steps"] for r in got["refits"]],
+          "act_batch_calls": len(got["acts"]),
+          "max_prediction_rel_diff": pred_rel,
+          "prediction_rtol": CONTROL_PRED_RTOL,
+          "refit_losses": losses, "cpu_refit_losses": ref_losses,
+          "max_refit_loss_rel_diff": loss_rel,
+          "refit_loss_rtol": REFIT_LOSS_RTOL,
+          "max_logp_diff": logp_diff,
+          "min_top2_margin": min(want["margins"], default=None),
+          "min_distance": {
+              "hedge_overrun": min(got["hedge_distances"], default=None),
+              "refit_threshold": min(got["refit_distances"], default=None),
+              "refresh_threshold": min(got["refresh_distances"],
+                                       default=None)},
+          "launches": launched, "obs_off_identical": same_off,
+          "breaker_rollback": breaker, "selftests": selftests,
+          "identical_to_cpu": not bad, "mismatches": bad})
+    if bad:
+        raise AssertionError(f"control phase: {bad}")
+    return launched
+
+
+# ---------------------------------------------------------------- gen
+def gen_run(device, explore):
+    """bench_generalize's serving world, freshly sampled (its deltas
+    mutate the db), served by a fresh seeded agent (hidden 96, the
+    reference's weights) on GEN_LANES lanes under the world's own chaos
+    and a retry ladder."""
+    w = sample_world(GEN_SEED, **GEN_WORLD)
+    agent = AqoraAgent(w.meta, AgentConfig(), seed=0, device=device)
+    margins, acts = [], []
+    if device == "cpu":
+        record_margins(agent, margins)
+    inner = agent.act_batch
+
+    def counted(*a, **k):
+        f0 = tree_conv.tree_cnn_fused_launches
+        out = inner(*a, **k)
+        acts.append(tree_conv.tree_cnn_fused_launches - f0)
+        return out
+    agent.act_batch = counted
+    mgr = RecoveryManager(injector=w.fault_injector(),
+                          retry=RetryPolicy(max_attempts=3, backoff=0.5))
+    svc = QueryService(w.db, agent, n_lanes=GEN_LANES, policy="async",
+                       explore=explore, recovery=mgr)
+    sync(device)
+    t0 = time.perf_counter()
+    comps, _ = svc.run(w.stream)
+    sync(device)
+    return {"comps": comps, "wall": time.perf_counter() - t0,
+            "versions": dict(w.db.versions), "acts": acts,
+            "margins": margins, "recovery": mgr.stats.as_dict(),
+            "feat_dim": w.meta.feat_dim}
+
+
+def phase_gen(card=None):
+    """A sampled world served greedy and then exploring, on the card and
+    on the CPU: completions identical, table versions equal,
+    log-probabilities within TOL, one encoder launch per act_batch."""
+    tree_conv.tree_cnn_fused_launches = 0
+    bad, rows = [], {}
+    launches = 0
+    for explore in (False, True):
+        f0 = tree_conv.tree_cnn_fused_launches
+        got = gen_run(card, explore)
+        launches += tree_conv.tree_cnn_fused_launches - f0
+        want = gen_run("cpu", explore)
+        mode = "explore" if explore else "greedy"
+        if completion_rows(got["comps"]) != completion_rows(want["comps"]):
+            bad.append(f"{mode}: completions differ")
+        _, logp_diff = compare_completions(got["comps"], want["comps"])
+        if not logp_diff <= TOL:
+            bad.append(f"{mode}: logps differ by {logp_diff}")
+        if got["versions"] != want["versions"] or \
+                got["recovery"] != want["recovery"]:
+            bad.append(f"{mode}: versions {got['versions']} vs "
+                       f"{want['versions']}, recovery {got['recovery']} vs "
+                       f"{want['recovery']}")
+        if not got["acts"] or any(n != 1 for n in got["acts"]):
+            bad.append(f"{mode}: forward launches per act_batch "
+                       f"{got['acts']}")
+        rows[mode] = {"completed": len(got["comps"]),
+                      "failed": sum(c.result.failed for c in got["comps"]),
+                      "deltas": sum(got["versions"].values()),
+                      "recovery": got["recovery"], "wall_s": got["wall"],
+                      "cpu_wall_s": want["wall"],
+                      "act_batch_calls": len(got["acts"]),
+                      "max_logp_diff": logp_diff,
+                      "min_top2_margin": min(want["margins"], default=None)}
+    emit({"phase": "gen", "world_seed": GEN_SEED, **GEN_WORLD,
+          "lanes": GEN_LANES, "feat_dim": got["feat_dim"], "runs": rows,
+          "launches": {"tree_cnn_fused": launches},
+          "identical_to_cpu": not bad, "mismatches": bad})
+    if bad:
+        raise AssertionError(f"gen phase: {bad}")
+    return {"tree_cnn_fused": launches}
+
+
 def phase_late_profiles(bwd_timing, agent, trajs):
     """The torch.profiler readings of the training path, taken after the
     ops phase (whose own profiler readings come first in the process):
@@ -1514,6 +2060,8 @@ def main() -> int:
     learn_launches, state, replay, ref_replay = phase_learn(db, wl, meta,
                                                             tree)
     qos_launches = phase_qos(db, wl, meta, state, replay, ref_replay)
+    control_launches = phase_control(wl, meta, state)
+    gen_launches = phase_gen()
     if args.profile:
         phase_profile(db, wl, meta, params_from_numpy(tree))
     ops_launches, ops_rows = phase_ops(tree, db, wl, meta)
@@ -1523,7 +2071,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/tree_cnn_fused.cu",
         "replaces": "src/repro/kernels/tree_conv.py:224",
         "launches": launches + learn_launches["tree_cnn_fused"]
-        + qos_launches["tree_cnn_fused"], "max_abs_err": worst,
+        + qos_launches["tree_cnn_fused"]
+        + control_launches["tree_cnn_fused"]
+        + gen_launches["tree_cnn_fused"], "max_abs_err": worst,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None, "case": "step18/serving"}, {
@@ -1532,7 +2082,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/tree_conv.py:202",
         "launches": train_launches["tree_cnn_fused_bwd"]
         + learn_launches["tree_cnn_fused_bwd"]
-        + qos_launches["tree_cnn_fused_bwd"],
+        + qos_launches["tree_cnn_fused_bwd"]
+        + control_launches["tree_cnn_fused_bwd"],
         "max_abs_err": bwd_worst,
         **{k: bwd_timing["step18/ppo-actor/B24/N48"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},

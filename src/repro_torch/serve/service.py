@@ -164,10 +164,8 @@ class QueryService:
         self.admission = admission
         self.recovery = recovery
         if monitor is not None and obs is None:
-            raise NotImplementedError(
-                "monitor= without obs= needs the observability plane "
-                "(serve.obs.Tracer), which the serving control-plane "
-                "slice ports (ROADMAP Queue A10)")
+            from repro_torch.serve.obs import Tracer
+            obs = Tracer()
         self.obs = obs
         self.monitor = monitor
         self.plan_memory = plan_memory

@@ -4,8 +4,8 @@
   module (checked in a fresh interpreter);
 * every numpy/pure-Python module the port copies from `repro` equals the
   reference source after `repro.` -> `repro_torch.`, apart from the short
-  explicit allow-list below (the not-yet-ported observability seam and
-  the jax-free `as_key`) and comments that named project history;
+  explicit allow-list below (the jax-free key in `core/rollout.py`) and
+  comments that named project history;
 * `AqoraAgent` without a device asks for CUDA and raises without it.
 """
 import os
@@ -35,13 +35,26 @@ COPIES = (
     "learn/curriculum.py", "learn/policy_store.py", "learn/learner.py",
     "serve/qos/__init__.py", "serve/qos/tenancy.py", "serve/qos/degrade.py",
     "serve/qos/admission.py",
+    "serve/recover/__init__.py", "serve/recover/faults.py",
+    "serve/recover/retry.py", "serve/recover/hedge.py",
+    "serve/recover/breaker.py", "serve/recover/manager.py",
+    "serve/obs/__init__.py", "serve/obs/metrics.py", "serve/obs/trace.py",
+    "serve/obs/explain.py", "serve/obs/anomaly.py", "serve/obs/rca.py",
+    "serve/obs/monitor.py", "serve/obs/export.py", "serve/obs/report.py",
+    "serve/drift/__init__.py", "serve/drift/detector.py",
+    "serve/drift/policy.py", "serve/drift/probes.py",
+    "serve/drift/controller.py",
+    "serve/plans/__init__.py", "serve/plans/memory.py",
+    "serve/plans/superopt.py",
+    "gen/__init__.py", "gen/schema.py", "gen/queries.py", "gen/streams.py",
+    "gen/world.py", "serve/__init__.py",
 )
 
 # Comments in the reference that name project history ("the PR-n path")
 # are reworded in the copies; nothing else changes but these seams.
 HISTORY = ((re.compile(r"PR-\d+(?:\.\.\d+)?(?:/PR-\d+)?"), "original"),
            (re.compile(r"seed PR\b"), "seed"),
-           (re.compile(r" \(PR \d+\)"), ""))
+           (re.compile(r" \(PR \d+(?:-\d+)?\)"), ""))
 
 # (reference snippet, port snippet) per file, applied after the rename
 ALLOWED = {
@@ -52,13 +65,6 @@ ALLOWED = {
          "from repro_torch.core.prng import prng_key\n"),
         ("        return np.asarray(jax.random.PRNGKey(int(key)), np.uint32)\n",
          "        return prng_key(int(key))\n")],
-    "serve/service.py": [
-        ("            from repro_torch.serve.obs import Tracer\n"
-         "            obs = Tracer()\n",
-         "            raise NotImplementedError(\n"
-         "                \"monitor= without obs= needs the observability plane \"\n"
-         "                \"(serve.obs.Tracer), which the serving control-plane \"\n"
-         "                \"slice ports (ROADMAP Queue A10)\")\n")],
 }
 
 

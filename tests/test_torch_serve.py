@@ -32,6 +32,7 @@ from repro_torch.core.agent import AgentConfig, AqoraAgent  # noqa: E402
 from repro_torch.core.encoding import WorkloadMeta  # noqa: E402
 from repro_torch.core.rollout import rollout  # noqa: E402
 from repro_torch.serve.driver import open_loop_stream  # noqa: E402
+from repro_torch.serve.obs import SloMonitor, Tracer  # noqa: E402
 from repro_torch.serve.scheduler import Arrival, LaneScheduler  # noqa: E402
 from repro_torch.serve.service import QueryService  # noqa: E402
 from repro_torch.sql import datagen, workloads  # noqa: E402
@@ -124,11 +125,11 @@ def test_lockstep_serves_the_same_plans(port_world):
         assert a.result.latency == b.result.latency
 
 
-def test_unported_planes_raise(port_world):
-    """`monitor=` without `obs=` still needs the observability plane;
-    `policy="edf"` serves through the ported QoS plane's EdfPolicy: of
+def test_edf_and_monitor_without_tracer_serve(port_world):
+    """`policy="edf"` serves through the ported QoS plane's EdfPolicy: of
     three queries arriving together on one lane, the earliest deadline
-    is admitted first."""
+    is admitted first. `monitor=` without `obs=` serves with a `Tracer`
+    the service creates, whose span trees the monitor reads."""
     db, wl, agent = port_world
     sched = LaneScheduler(db, Estimator(db, db.stats), agent, n_lanes=1,
                           policy="edf")
@@ -136,8 +137,15 @@ def test_unported_planes_raise(port_world):
                        for i, dl in enumerate((30.0, 10.0, 20.0))])
     assert [c.seq for c in sorted(comps, key=lambda c: c.admit_t)] == \
         [1, 2, 0]
-    with pytest.raises(NotImplementedError, match="monitor"):
-        QueryService(db, agent, monitor=object())
+    mon = SloMonitor()
+    svc = QueryService(db, agent, n_lanes=2, monitor=mon)
+    assert isinstance(svc.obs, Tracer)
+    comps, stats = svc.run([Arrival(0.0, query=wl.test[i], seed=i)
+                            for i in range(3)])
+    assert stats.n_completed == 3 and len(comps) == 3
+    assert svc.scheduler.obs is svc.obs
+    assert len(svc.obs.roots()) == 3
+    assert mon.summary()["n_records"] == 3
 
 
 @pytest.mark.parametrize("keyed", [False, True])
