@@ -10,12 +10,14 @@ Phases, each printing one JSON line:
   kernels  every kernel against its plain PyTorch version on the card, at
            the serving shapes (B=8 and B=5, N in {16, 32, 48, 64}, F=26,
            H=96; the trained step-18 weights and random ones; all-masked
-           lanes; out-of-range child indices), with its time, the plain
-           version's time and the card's bound for the same work; then the
-           encoder's backward kernel against its plain version
-           (`ref.tree_cnn_fused_bwd_ref`) at the PPO shapes (24 and 32
-           trees, N=48), at B=8 and B=5 over N in {16, 32, 48, 64} on
-           step-18 and random weights, and on trees with tied maxima:
+           lanes; out-of-range child indices; and a DQN train step's
+           batch, B=64, N=64, F=19), with its time, the plain version's
+           time and the card's bound for the same work at the serving and
+           the DQN shape; then the encoder's backward kernel against its
+           plain version (`ref.tree_cnn_fused_bwd_ref`) at the PPO shapes
+           (24 and 32 trees, N=48), at B=8 and B=5 over N in {16, 32, 48,
+           64} on step-18 and random weights, on trees with tied maxima
+           and at the DQN shape:
            the 12 weight grads, gfeat and gmask each within BWD_ATOL +
            BWD_RTOL * |plain|, every case checked before any fails; the
            same inputs twice give bitwise-equal gradients; its time by
@@ -103,6 +105,31 @@ Phases, each printing one JSON line:
            freshly sampled world), on the card and on the CPU: completions
            and table versions identical, log-probabilities within TOL,
            one encoder launch per act_batch;
+  ablate   the paper's comparison surface at the ablation experiment's
+           deployment (`experiments/ablations.py`: the ExtJOB-like db at
+           scale 0.4, `make_workload("extjob", n_train=120,
+           n_test_per_template=2, seed=7)`: F=19, 10 tables, the trimmed
+           node bucket 32, 64 for the FCNN; hidden 96): (a) a fresh
+           `AqoraAgent` of each of the LSTM, FCNN and QueryFormer encoders
+           on the card and on the CPU, equal leaf for leaf;
+           `train_agent(episodes=ABLATE_EPISODES, batch_size=8, seed=0)`
+           on each (first batch equal, first losses within
+           TRAIN_LOSS_RTOL, every leaf finite); the CPU's trained state on
+           the card and greedy `evaluate` of the 24 test queries on each
+           (actions, latencies, failures identical; the smallest top-2
+           margin printed); ms an act_batch and a PPO update; (b) the
+           `DQNAgent` through `train_agent(agent=dqn,
+           episodes=DQN_EPISODES)`, serial, on each: the episodes before
+           the first train step identical, that step's loss within
+           DQN_LOSS_RTOL, one forward launch a greedy act, two forward
+           launches and one backward call a train step (B=64, N=64), the
+           smallest Q margin; (c) `main_experiment.run_bench("extjob",
+           episodes=ABLATE_EPISODES, batch_size=8)` on each, results under
+           build/: Spark, Lero and AutoSteer rows identical but for their
+           wall-clock fields, AQORA's first episode-batch identical, the
+           smallest Lero and AutoSteer score margins and both walls.
+           Episode counts are cut (the experiments train 300-400
+           episodes); widths are not. Every case is checked first;
   ops      the `kernels.ops` path at full model widths from the reference's
            configs (src/repro/configs): `mha_flash` at qwen3-8b prefill,
            decode, a 4-query suffix and fp32 and at gemma2-27b's
@@ -126,22 +153,24 @@ Phases, each printing one JSON line:
            kernels under torch.profiler, which must be one.
 
 After the ops phase, the `train_profile` line: the backward kernel's
-device time by torch.profiler at the PPO shapes, and one PPO update
-under torch.profiler (device busy time by kernel, idle share). These
-readings come after the ops phase's own, which then are the first in
-the process.
+device time by torch.profiler at the PPO and DQN shapes, and one PPO
+update under torch.profiler (device busy time by kernel, idle share);
+then the `ablate_profile` line: each ablation encoder's device kernels
+and device ms for one greedy act_batch of its first training batch.
+These readings come after the ops phase's own, which then are the first
+in the process.
 
 With `--profile`, one more card serve runs under `torch.profiler`: its
 line gives the device's busy time by kernel and its idle share of the
 wall time.
 
 Then the kernels summary line (the encoder rows' launches sum the serve,
-learn, qos, control and gen phases', and the train, learn, qos and
-control phases' for the backward), the `nvidia-smi` line, and the result
-line `{"ok": true, "device": {...}}`. Any failure raises and exits
-non-zero (the learn, qos, control and gen phases check every case first
-and name each mismatch); without CUDA the script exits non-zero before
-printing any result.
+learn, qos, control, gen and ablate phases', and the train, learn, qos,
+control and ablate phases' for the backward), the `nvidia-smi` line, and
+the result line `{"ok": true, "device": {...}}`. Any failure raises and
+exits non-zero (the learn, qos, control, gen and ablate phases check
+every case first and name each mismatch); without CUDA the script exits
+non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -160,6 +189,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.baselines import (AutoSteerOptimizer,  # noqa: E402
+                                   LeroOptimizer)
 from repro_torch.checkpoint import (Checkpointer, agent_state,  # noqa: E402
                                     agent_state_from_numpy,
                                     install_agent_state,
@@ -168,8 +199,10 @@ from repro_torch.checkpoint import (Checkpointer, agent_state,  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.agent import (AgentConfig, AqoraAgent,  # noqa: E402
                                     _node_bucket)
+from repro_torch.core.dqn import DQNAgent  # noqa: E402
 from repro_torch.core.encoding import WorkloadMeta, encode_state  # noqa: E402
-from repro_torch.core.train_loop import train_agent  # noqa: E402
+from repro_torch.core.train_loop import evaluate, train_agent  # noqa: E402
+from repro_torch.experiments import main_experiment  # noqa: E402
 from repro_torch.gen.world import sample_world  # noqa: E402
 from repro_torch.kernels import build, ops, ref, tree_conv  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -236,6 +269,13 @@ GEN_WORLD = {"family": "person", "scale": 0.07, "n_templates": 8,
              "n_train": 24, "n_test_per_template": 1, "t_min": 3,
              "t_max": 5, "n_queries": 72}   # bench_generalize's serving world
 GEN_SEED, GEN_LANES = 202, 4
+# the ablation experiment's workload (experiments/ablations.py, run_all)
+ABLATE_WORKLOAD = {"n_train": 120, "n_test_per_template": 2, "seed": 7}
+ABLATE_EPISODES = 16       # each encoder's and run_bench's AQORA training
+DQN_EPISODES = 32          # the DQN agent's serial episodes
+DQN_LOSS_RTOL = 1e-5       # the first train step's loss, card against CPU
+DQN_SHAPE = (64, 64, 19)   # a DQN train step's batch: B, N (MAX_NODES), F
+WALL_CLOCK = ("plan_time", "total")  # run_bench fields from the host clock
 
 
 def emit(obj) -> None:
@@ -412,6 +452,13 @@ def phase_kernels(db, wl, meta, ckpt_tree):
                               to_cuda(random_batch(rng, B, N, F))))
     real = to_cuda(serving_batch(db, wl, meta))
     cases.append(("step18/serving", trained, real))
+    # a DQN train step's shape (ablate phase): its own generator, so the
+    # cases above keep their inputs
+    drng = np.random.default_rng(64)
+    dqn_case = (f"dqn/B{DQN_SHAPE[0]}/N{DQN_SHAPE[1]}/F{DQN_SHAPE[2]}",
+                to_cuda(random_params(drng, DQN_SHAPE[2], H)),
+                to_cuda(random_batch(drng, *DQN_SHAPE)))
+    cases.append(dqn_case)
 
     worst = 0.0
     rows = []
@@ -433,9 +480,14 @@ def phase_kernels(db, wl, meta, ckpt_tree):
     timing = kernel_timing(*real, trained, launches=500)
     timing["plain_ms"] = cuda_ms(lambda: ref.tree_cnn_fused_ref(
         *real, trained), launches=100)
-    bwd_rows, bwd_worst, bwd_timing = backward_cases(rng, weights, real)
+    dqn_timing = kernel_timing(*dqn_case[2], dqn_case[1], launches=200)
+    dqn_timing["plain_ms"] = cuda_ms(lambda: ref.tree_cnn_fused_ref(
+        *dqn_case[2], dqn_case[1]), launches=20)
+    bwd_rows, bwd_worst, bwd_timing = backward_cases(rng, weights, real,
+                                                     extra=[dqn_case])
     emit({"phase": "kernels", "tolerance": TOL, "max_abs_err": worst,
           "cases": rows, "tree_cnn_fused": timing,
+          "tree_cnn_fused_dqn": dqn_timing,
           "backward": {"atol": BWD_ATOL, "rtol": BWD_RTOL,
                        "max_abs_err": bwd_worst, "cases": bwd_rows,
                        "bitwise_repeatable": True,
@@ -494,10 +546,11 @@ def backward_check(name, params, batch, g):
             "outside": [p["case"] for p in parts if not p["ok"]]}
 
 
-def backward_cases(rng, weights, real):
-    """Every backward case checked, then one error naming each case
-    outside its limit; then the same inputs twice, bit for bit; then the
-    kernel's time at the actor's and the critic's PPO shapes."""
+def backward_cases(rng, weights, real, extra=()):
+    """Every backward case (and the `extra` ones) checked, then one error
+    naming each case outside its limit; then the same inputs twice, bit
+    for bit; then the kernel's time at the actor's and the critic's PPO
+    shapes and at each extra case's."""
     F, H = real[0].shape[2], weights["step18"]["conv1"]["wr"].shape[1]
     cases = [(f"step18/ppo-actor/B24/N48", weights["step18"],
               to_cuda(random_batch(rng, 24, 48, F))),
@@ -511,6 +564,7 @@ def backward_cases(rng, weights, real):
                               to_cuda(random_batch(rng, B, N, F))))
         cases.append((f"{wname}/tied/B8/N48", params,
                       to_cuda(tied_batch(rng, 8, 48, F))))
+    cases += list(extra)
     rows = []
     for name, params, batch in cases:
         g = torch.from_numpy(rng.standard_normal(
@@ -535,7 +589,8 @@ def backward_cases(rng, weights, real):
                             for w in tree_conv.WEIGHTS] for r in runs]
     if not all(torch.equal(a, b) for a, b in zip(*outs)):
         raise AssertionError("the backward kernel is not bitwise repeatable")
-    timing = {c[0]: backward_timing(*c[2], c[1]) for c in cases[:2]}
+    timing = {c[0]: backward_timing(*c[2], c[1])
+              for c in cases[:2] + list(extra)}
     return rows, max(r["max_abs_err"] for r in rows), timing
 
 
@@ -1617,11 +1672,358 @@ def phase_gen(card=None):
     return {"tree_cnn_fused": launches}
 
 
-def phase_late_profiles(bwd_timing, agent, trajs):
+# ---------------------------------------------------------------- ablate
+def ablate_deployment():
+    """The ablation experiment's deployment (`experiments/ablations.py`,
+    `run_all`): the ExtJOB-like db at main_experiment's SCALE (0.4) and
+    `make_workload("extjob", n_train=120, n_test_per_template=2,
+    seed=7)`: F = 19, 10 tables, 24 test queries."""
+    db = main_experiment.make_db("extjob", 0)
+    wl = workloads.make_workload("extjob", **ABLATE_WORKLOAD)
+    return db, wl, WorkloadMeta.from_workload(wl)
+
+
+def ablate_encoder(db, wl, meta, net):
+    """One encoder of the ablation: a fresh seeded agent on the card and
+    on the CPU (equal leaf for leaf), `train_agent` on each, the CPU's
+    trained state installed on the card, greedy `evaluate` on each."""
+    bad = []
+    cfg = AgentConfig(net=net)
+    agents = {dev: AqoraAgent(meta, cfg, seed=0, device=dev)
+              for dev in (None, "cpu")}
+    gpu, cpu = agents[None], agents["cpu"]
+    a, b = leaves_of(gpu), leaves_of(cpu)
+    if set(a) != set(b) or not all(np.array_equal(a[k], v)
+                                   for k, v in b.items()):
+        bad.append(f"{net}: a fresh seeded agent differs on the card")
+
+    act_s, update_ms, batches = [], [], []
+    act_inner, ppo_inner = gpu.act_batch, gpu.ppo_update_batch
+
+    def act_batch(feat, left, right, mask, amask, keys, explore=True):
+        t0 = time.perf_counter()
+        out = act_inner(feat, left, right, mask, amask, keys,
+                        explore=explore)
+        act_s.append(time.perf_counter() - t0)
+        if not batches:
+            batches.append(tuple(np.copy(x) for x in
+                                 (feat, left, right, mask, amask, keys)))
+        return out
+
+    def ppo_update_batch(trajs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = ppo_inner(trajs)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        return m
+    gpu.act_batch, gpu.ppo_update_batch = act_batch, ppo_update_batch
+
+    est = Estimator(db, db.stats)
+    t0 = time.perf_counter()
+    _, logs = train_agent(db, wl, episodes=ABLATE_EPISODES,
+                          batch_size=N_LANES, seed=0, est=est, agent=gpu)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, cpu_logs = train_agent(db, wl, episodes=ABLATE_EPISODES,
+                              batch_size=N_LANES, seed=0, est=est, agent=cpu)
+    cpu_wall = time.perf_counter() - t0
+    first = [(l.query, l.actions, l.latency, l.failed)
+             for l in logs[:N_LANES]]
+    if first != [(l.query, l.actions, l.latency, l.failed)
+                 for l in cpu_logs[:N_LANES]]:
+        bad.append(f"{net}: first episode-batch differs")
+    loss_rel = {k: abs(getattr(logs[0], k) - getattr(cpu_logs[0], k))
+                / max(abs(getattr(cpu_logs[0], k)), 1e-12)
+                for k in ("actor_loss", "critic_loss")}
+    if not max(loss_rel.values()) <= TRAIN_LOSS_RTOL:
+        bad.append(f"{net}: first update's losses differ by {loss_rel}")
+    if not params_finite(gpu) or not all(
+            np.isfinite(v).all() for v in leaves_of(gpu).values()):
+        bad.append(f"{net}: a trained leaf is not finite")
+
+    # greedy evaluation from one state: the CPU's, installed on the card
+    gpu.act_batch, gpu.ppo_update_batch = act_inner, ppo_inner
+    install_agent_state(gpu, agent_state(cpu))
+    margins = []
+    record_margins(cpu, margins)
+    sync(None)
+    t0 = time.perf_counter()
+    rows = evaluate(db, wl.test, gpu, est=est)
+    sync(None)
+    eval_wall = time.perf_counter() - t0
+    cpu_rows = evaluate(db, wl.test, cpu, est=est)
+    keys = ("query", "actions", "latency", "failed", "shuffles", "bushy")
+    if [[r[k] for k in keys] for r in rows] != \
+            [[r[k] for k in keys] for r in cpu_rows]:
+        bad.append(f"{net}: greedy evaluation differs")
+    row = {"train_wall_s": wall, "cpu_train_wall_s": cpu_wall,
+           "act_batch_calls": len(act_s),
+           "act_batch_ms_mean": float(np.mean(act_s)) * 1e3,
+           "act_batch_ms_median": float(np.median(act_s)) * 1e3,
+           "act_batch_node_dim": gpu._trim(batches[0][3].sum(axis=1)),
+           "ppo_updates": len(update_ms), "ppo_update_ms": update_ms,
+           "first_update_loss_rel_diff": loss_rel,
+           "eval_wall_s": eval_wall,
+           "eval_failed": sum(r["failed"] for r in rows),
+           "eval_latency_sum": float(sum(r["latency"] for r in rows)),
+           "min_top2_margin": min(margins)}
+    return row, bad, (gpu, batches[0])
+
+
+def ablate_dqn(db, wl, meta):
+    """`DQNAgent` through `train_agent(agent=dqn)`, serial, on the card
+    and on the CPU: the episodes before the first train step identical,
+    the first train step's loss within DQN_LOSS_RTOL; each greedy `act`
+    on the card one forward launch, each train step two forward launches
+    (q-net and target, B = 64, N = 64) and one backward call."""
+    bad, runs = [], {}
+    for dev in (None, "cpu"):
+        dqn = DQNAgent(meta, AgentConfig(), seed=0, device=dev)
+        rec = {"losses": [], "steps": [], "acts": [], "margins": [],
+               "step_ms": []}
+        q_inner, step_inner, act_inner = dqn._q, dqn.train_step, dqn.act
+        q_calls = []
+
+        def q(enc, q_inner=q_inner, q_calls=q_calls):
+            out = q_inner(enc)
+            q_calls.append(out)
+            return out
+
+        def act(enc, amask, explore=True, rec=rec, act_inner=act_inner,
+                q_calls=q_calls):
+            f0 = tree_conv.tree_cnn_fused_launches
+            n0 = len(q_calls)
+            out = act_inner(enc, amask, explore=explore)
+            if len(q_calls) > n0:          # the greedy branch ran the net
+                s = np.where(np.asarray(amask) > 0, q_calls[-1], -np.inf)
+                top = np.sort(s)[-2:]
+                rec["margins"].append(float(top[1] - top[0]))
+            rec["acts"].append((len(q_calls) - n0,
+                                tree_conv.tree_cnn_fused_launches - f0))
+            return out
+
+        def train_step(rec=rec, step_inner=step_inner, dev=dev):
+            f0 = tree_conv.tree_cnn_fused_launches
+            b0 = tree_conv.tree_cnn_fused_bwd_launches
+            sync(dev)
+            t0 = time.perf_counter()
+            loss = step_inner()
+            sync(dev)
+            if loss != 0.0:
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append(loss)
+            rec["steps"].append((loss != 0.0,
+                                 tree_conv.tree_cnn_fused_launches - f0,
+                                 tree_conv.tree_cnn_fused_bwd_launches - b0))
+            return loss
+        dqn._q, dqn.act, dqn.train_step = q, act, train_step
+        sync(dev)
+        t0 = time.perf_counter()
+        _, logs = train_agent(db, wl, episodes=DQN_EPISODES, seed=0,
+                              est=Estimator(db, db.stats), agent=dqn)
+        sync(dev)
+        rec["wall"] = time.perf_counter() - t0
+        rec["logs"] = logs
+        rec["buffer"] = len(dqn.buffer)
+        runs["card" if dev is None else "cpu"] = rec
+    card, cpu = runs["card"], runs["cpu"]
+    firsts = [next((i for i, l in enumerate(r["losses"]) if l != 0.0), None)
+              for r in (card, cpu)]
+    if firsts[0] is None or firsts[0] != firsts[1]:
+        bad.append(f"dqn: first train steps {firsts}")
+        first = None
+    else:
+        first = firsts[0]
+        before = first // 4 + 1             # 4 train steps an episode
+        if [(l.query, l.actions, l.latency, l.failed)
+                for l in card["logs"][:before]] != \
+                [(l.query, l.actions, l.latency, l.failed)
+                 for l in cpu["logs"][:before]]:
+            bad.append("dqn: the episodes before the first train step "
+                       "differ")
+        rel = abs(card["losses"][first] - cpu["losses"][first]) / \
+            max(abs(cpu["losses"][first]), 1e-12)
+        if not rel <= DQN_LOSS_RTOL:
+            bad.append(f"dqn: first train step's loss differs by {rel}")
+    if any(n != q for q, n in card["acts"]) or not any(q for q, _ in
+                                                       card["acts"]):
+        bad.append(f"dqn: forward launches per act {card['acts']}")
+    if any((f, b) != ((2, 2) if ran else (0, 0))
+           for ran, f, b in card["steps"]):
+        bad.append(f"dqn: launches per train step {card['steps']}")
+    row = {"episodes": DQN_EPISODES, "wall_s": card["wall"],
+           "cpu_wall_s": cpu["wall"], "buffer": card["buffer"],
+           "first_train_step": first,
+           "first_loss": None if first is None else card["losses"][first],
+           "first_loss_rel_diff": None if first is None else rel,
+           "train_steps_run": len(card["step_ms"]),
+           "train_step_ms_mean": float(np.mean(card["step_ms"]))
+           if card["step_ms"] else None,
+           "greedy_acts": sum(q for q, _ in card["acts"]),
+           "acts": len(card["acts"]),
+           "episodes_with_equal_actions": sum(
+               a.actions == b.actions
+               for a, b in zip(card["logs"], cpu["logs"])),
+           "min_q_margin": min(cpu["margins"], default=None)}
+    return row, bad
+
+
+def score_margins(cls, margins):
+    """Wrap `cls.choose` (a baseline's) so that each call appends the
+    smallest gap its decision rests on: for Lero's argmin, the best score
+    against the best of the candidates whose features differ from its
+    own (equal features score equal on any device); for AutoSteer's
+    greedy search, each prediction against the best so far. Returns the
+    undo."""
+    inner, score_inner = cls.choose, cls._score
+
+    def choose(self, query):
+        seen = []
+
+        def score(x):
+            seen.append((np.asarray(x).tobytes(), score_inner(self, x)))
+            return seen[-1][1]
+        self._score = score
+        try:
+            out = inner(self, query)
+        finally:
+            del self._score
+        if cls is LeroOptimizer:
+            best = min(seen, key=lambda fs: fs[1])
+            rest = [s for f, s in seen if f != best[0]]
+            if rest:
+                margins.append(min(rest) - best[1])
+        else:
+            best = seen[0][1]
+            for _, p in seen[1:]:
+                margins.append(abs(p - best))
+                best = min(best, p)
+        return out
+    cls.choose = choose
+    return lambda: setattr(cls, "choose", inner)
+
+
+def ablate_bench():
+    """`main_experiment.run_bench("extjob", episodes=ABLATE_EPISODES,
+    batch_size=8)` on the card (the default device) and on the CPU, its
+    results under build/: Spark, Lero and AutoSteer rows identical but
+    for their wall-clock fields, AQORA's first episode-batch identical."""
+    bad, outs, walls = [], {}, {}
+    margins = {"lero": [], "autosteer": []}
+    for dev in (None, "cpu"):
+        side = "card" if dev is None else "cpu"
+        main_experiment.RESULTS = ROOT / "build" / "chip_smoke_results" / side
+        undo = []
+        if dev == "cpu":
+            undo = [score_margins(LeroOptimizer, margins["lero"]),
+                    score_margins(AutoSteerOptimizer, margins["autosteer"])]
+        t0 = time.perf_counter()
+        try:
+            outs[side] = main_experiment.run_bench(
+                "extjob", episodes=ABLATE_EPISODES, batch_size=N_LANES,
+                quiet=True, device=dev)
+        finally:
+            for u in undo:
+                u()
+        sync(dev)
+        walls[side] = time.perf_counter() - t0
+    card, cpu = outs["card"], outs["cpu"]
+    if card["spark"] != cpu["spark"]:
+        bad.append("bench: Spark rows differ")
+    for system in ("lero", "autosteer"):
+        strip = [[{k: v for k, v in r.items() if k not in WALL_CLOCK}
+                  for r in o[system]] for o in (card, cpu)]
+        if strip[0] != strip[1] or not strip[0]:
+            bad.append(f"bench: {system} rows differ")
+    if card["aqora_training"][:N_LANES] != cpu["aqora_training"][:N_LANES]:
+        bad.append("bench: AQORA's first episode-batch differs")
+    if not (ROOT / "build" / "chip_smoke_results" / "card" /
+            "extjob.json").exists():
+        bad.append("bench: no results file")
+
+    def total(rows, key="latency"):
+        return float(sum(r[key] for r in rows))
+    row = {"episodes": ABLATE_EPISODES,
+           "baseline_episodes": main_experiment.BASELINE_EPISODES,
+           "wall_s": walls["card"], "cpu_wall_s": walls["cpu"],
+           "test_queries": len(card["spark"]),
+           "latency_sum": {s: total(card[s]) for s in
+                           ("spark", "lero", "autosteer", "aqora")},
+           "failed": {s: sum(r["failed"] for r in card[s]) for s in
+                      ("spark", "lero", "autosteer", "aqora")},
+           "aqora_equal_to_cpu": [a["actions"] == b["actions"]
+                                  for a, b in zip(card["aqora"],
+                                                  cpu["aqora"])].count(True),
+           "min_lero_margin": min(margins["lero"], default=None),
+           "min_autosteer_margin": min(margins["autosteer"], default=None)}
+    return row, bad
+
+
+def phase_ablate():
+    """The paper's comparison surface (Fig. 7, Fig. 9, Fig. 11, Tab. III)
+    at the ablation experiment's deployment, nothing cut in width: (a)
+    the LSTM, FCNN and QueryFormer agents trained (ABLATE_EPISODES
+    episodes in batches of 8) and evaluated greedily on the card and the
+    CPU; (b) the DQN agent through DQN_EPISODES serial episodes on each;
+    (c) `main_experiment.run_bench` on each. Episode counts are cut
+    (ablations.py trains 300 episodes, main_experiment 400 for ExtJOB and
+    60 baseline episodes, which run_bench keeps); widths are not. Every
+    case is checked before any fails. Returns the phase's kernel
+    launches (every count set to 0 at its start)."""
+    fa.launches = ms.launches = 0
+    tree_conv.tree_conv_launches = tree_conv.tree_cnn_fused_launches = 0
+    tree_conv.tree_cnn_fused_bwd_launches = 0
+    db, wl, meta = ablate_deployment()
+    bad, rows, profiled = [], {}, {}
+    for net in ("lstm", "fcnn", "queryformer"):
+        rows[net], b, profiled[net] = ablate_encoder(db, wl, meta, net)
+        bad += b
+    rows["dqn"], b = ablate_dqn(db, wl, meta)
+    bad += b
+    rows["bench"], b = ablate_bench()
+    bad += b
+    launched = dict(counts(),
+                    tree_cnn_fused_bwd=tree_conv.tree_cnn_fused_bwd_launches)
+    for k in ("tree_cnn_fused", "tree_cnn_fused_bwd"):
+        if not launched[k]:
+            bad.append(f"{k} never launched in the ablate phase")
+    emit({"phase": "ablate", "feat_dim": meta.feat_dim,
+          "tables": meta.n_tables_max, **ABLATE_WORKLOAD,
+          "scale": main_experiment.SCALE, "runs": rows,
+          "launches": launched, "identical_to_cpu": not bad,
+          "mismatches": bad})
+    if bad:
+        raise AssertionError(f"ablate phase: {bad}")
+    return launched, profiled
+
+
+def ablate_profile(profiled):
+    """Device kernels and device ms of one greedy `act_batch` of each
+    encoder on its first training batch, by torch.profiler (taken after
+    the ops phase, whose own profiler readings come first)."""
+    out = {}
+    for net, (agent, (feat, left, right, mask, amask, keys)) in \
+            profiled.items():
+        def call():
+            agent.act_batch(feat, left, right, mask, amask, keys,
+                            explore=False)
+        call()
+        kernels = device_kernels(call, calls=5)
+        out[net] = {"device_kernels_per_act_batch": len(kernels) / 5,
+                    "device_ms_per_act_batch":
+                        sum(t for _, t in kernels) / 5,
+                    "node_dim": agent._trim(mask.sum(axis=1))}
+    return out
+
+
+def phase_late_profiles(bwd_timing, agent, trajs, ablate_profiled):
     """The torch.profiler readings of the training path, taken after the
     ops phase (whose own profiler readings come first in the process):
-    the backward kernel's device time at the PPO shapes, and one PPO
-    update's device busy time and idle share."""
+    the backward kernel's device time at the PPO and DQN shapes, one PPO
+    update's device busy time and idle share; then the `ablate_profile`
+    line, each ablation encoder's device kernels an `act_batch`."""
     bwd = {}
     for case, t in bwd_timing.items():
         calls = 20
@@ -1633,6 +2035,8 @@ def phase_late_profiles(bwd_timing, agent, trajs):
                                           "max_active_clusters")}}
     emit({"phase": "train_profile", "backward_kernel": bwd,
           "ppo_update": profile_update(agent, trajs)})
+    emit({"phase": "ablate_profile", "act_batch": ablate_profile(
+        ablate_profiled)})
 
 
 def profile_update(agent, trajs):
@@ -2062,10 +2466,11 @@ def main() -> int:
     qos_launches = phase_qos(db, wl, meta, state, replay, ref_replay)
     control_launches = phase_control(wl, meta, state)
     gen_launches = phase_gen()
+    ablate_launches, ablate_profiled = phase_ablate()
     if args.profile:
         phase_profile(db, wl, meta, params_from_numpy(tree))
     ops_launches, ops_rows = phase_ops(tree, db, wl, meta)
-    phase_late_profiles(bwd_timing, trained, trajs)
+    phase_late_profiles(bwd_timing, trained, trajs, ablate_profiled)
     summary = [{
         "name": "tree_cnn_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tree_cnn_fused.cu",
@@ -2073,7 +2478,8 @@ def main() -> int:
         "launches": launches + learn_launches["tree_cnn_fused"]
         + qos_launches["tree_cnn_fused"]
         + control_launches["tree_cnn_fused"]
-        + gen_launches["tree_cnn_fused"], "max_abs_err": worst,
+        + gen_launches["tree_cnn_fused"]
+        + ablate_launches["tree_cnn_fused"], "max_abs_err": worst,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None, "case": "step18/serving"}, {
@@ -2083,7 +2489,8 @@ def main() -> int:
         "launches": train_launches["tree_cnn_fused_bwd"]
         + learn_launches["tree_cnn_fused_bwd"]
         + qos_launches["tree_cnn_fused_bwd"]
-        + control_launches["tree_cnn_fused_bwd"],
+        + control_launches["tree_cnn_fused_bwd"]
+        + ablate_launches["tree_cnn_fused_bwd"],
         "max_abs_err": bwd_worst,
         **{k: bwd_timing["step18/ppo-actor/B24/N48"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},

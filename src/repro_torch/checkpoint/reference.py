@@ -11,7 +11,9 @@ state dicts of the port's actor and critic. `agent_state_from_numpy`
 turns a whole reference agent tree `{actor, critic, aopt, copt}` into the
 port's agent state (`checkpoint.agent_io`), optimizer moments and steps
 included, and `agent_state_to_numpy` goes the other way; leaf names are
-the reference's on both sides.
+the reference's on both sides. A list in the reference's tree (the
+QueryFormer's layers) becomes the dict keyed "0", "1", ... that the
+port's `nn.ModuleList` gives (`repro_torch.tree`).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import children, is_node, tree_map
 
 
 def load_reference_checkpoint(directory) -> Dict:
@@ -49,8 +51,8 @@ def load_reference_checkpoint(directory) -> Dict:
 
 def _state_dict(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    for k, v in children(tree).items():
+        if is_node(v):
             out.update(_state_dict(v, f"{prefix}{k}."))
         else:
             out[f"{prefix}{k}"] = torch.from_numpy(np.array(v))

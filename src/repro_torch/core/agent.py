@@ -1,5 +1,5 @@
-"""AQORA agent: TreeCNN actor + critic, masked policy, PPO update
-(Alg. 1).
+"""AQORA agent: actor + critic (TreeCNN by default, or the LSTM, FCNN or
+QueryFormer encoder of `cfg.net`), masked policy, PPO update (Alg. 1).
 
 The serving stack duck-types the agent through `meta`, `space`, `cfg`
 and `act_batch` (serve/scheduler.py); rollouts also use `act_keyed` and
@@ -12,7 +12,9 @@ Gumbel-argmax on the device). Actions and log-probabilities come to the
 host in ONE device->host transfer; the lane keys advance on the host
 with the reference's threefry split. Serial `act` samples with
 `prng.choice` from the agent's own key chain, as the reference's
-`jax.random.choice`.
+`jax.random.choice`. The FCNN flattens all MAX_NODES slots, so its
+states are never trimmed; for the others trimming is exact (masked LSTM
+steps keep their state, padded QueryFormer keys get -1e9).
 
 `ppo_update_batch` is the reference's update: realised returns and the
 current critic's values on the host side, then `cfg.ppo_epochs` epochs
@@ -71,6 +73,17 @@ def _node_bucket(n_used: int) -> int:
     return min(b, MAX_NODES)
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """`device`, where None means CUDA and raises when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who} runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' for the plain path")
+        device = "cuda"
+    return torch.device(device)
+
+
 def param_tree(net: torch.nn.Module):
     """A network's parameters as the reference's nested dict
     ({"enc": {"conv1": {"wr": ...}}, "head": {...}}), the tensors
@@ -87,16 +100,7 @@ class AqoraAgent:
 
     def __init__(self, meta: WorkloadMeta, cfg: AgentConfig = AgentConfig(),
                  seed: int = 0, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "AqoraAgent runs on CUDA by default and no CUDA device "
-                    "is available; pass device='cpu' for the plain path")
-            device = "cuda"
-        if cfg.net != "treecnn":
-            raise NotImplementedError(
-                f"encoder {cfg.net!r} is not ported yet; only treecnn is")
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "AqoraAgent")
         self.meta = meta
         self.cfg = cfg
         self.space = ActionSpace(meta.n_tables_max, cfg.families)
@@ -104,9 +108,9 @@ class AqoraAgent:
         k = prng.split(prng.prng_key(seed), 5)
         F, H = meta.feat_dim, cfg.hidden
         self.actor = nets.EncoderHead(F, H, cfg.head_hidden, self.space.d,
-                                      k[0], k[1]).to(self.device)
+                                      k[0], k[1], cfg.net).to(self.device)
         self.critic = nets.EncoderHead(F, H, cfg.head_hidden, 1,
-                                       k[2], k[3]).to(self.device)
+                                       k[2], k[3], cfg.net).to(self.device)
         self.aopt = adamw_init(param_tree(self.actor))
         self.copt = adamw_init(param_tree(self.critic))
         self._acfg = AdamWConfig(lr=cfg.lr_actor, weight_decay=0.0,
@@ -114,8 +118,9 @@ class AqoraAgent:
         self._ccfg = AdamWConfig(lr=cfg.lr_critic, weight_decay=0.0,
                                  grad_clip=5.0)
         self.rng = prng.prng_key(seed + 1)
-        # static per-workload trimmed node dim
-        self._nodes = _node_bucket(2 * meta.n_tables_max)
+        # static per-workload trimmed node dim (fcnn flattens MAX_NODES)
+        self._nodes = MAX_NODES if cfg.net == "fcnn" \
+            else _node_bucket(2 * meta.n_tables_max)
 
     def load_params(self, state: Dict[str, Dict[str, torch.Tensor]]) -> None:
         """Install `checkpoint.params_from_numpy` output (actor + critic)."""
@@ -124,6 +129,13 @@ class AqoraAgent:
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _trim(self, used) -> int:
+        """The node dimension for states with `used` masked-in slots: the
+        bucket of the deepest, or MAX_NODES for fcnn."""
+        if self.cfg.net == "fcnn":
+            return MAX_NODES
+        return min(self._nodes, _node_bucket(int(np.max(used)) + 1))
 
     # ------------------------------------------------------------- policy
     @torch.inference_mode()
@@ -149,11 +161,11 @@ class AqoraAgent:
         (B, N), amask (B, d), keys (B, 2) uint32. Returns numpy (actions
         (B,) int32, logps (B,) float32, advanced keys (B, 2) uint32).
 
-        The node dimension is trimmed to the workload's bucket first:
-        trailing padding rows never influence real nodes, so this is
-        exact."""
+        The node dimension is trimmed to the workload's bucket first
+        (fcnn excepted): trailing padding rows never influence real
+        nodes, so this is exact."""
         mask = np.asarray(mask)
-        n = min(self._nodes, _node_bucket(int(mask.sum(axis=1).max()) + 1))
+        n = self._trim(mask.sum(axis=1))
         lg = self.actor(self._tensor(np.asarray(feat)[:, :n]),
                         self._tensor(np.asarray(left)[:, :n]),
                         self._tensor(np.asarray(right)[:, :n]),
@@ -268,8 +280,8 @@ class AqoraAgent:
             term_b.append(term)
 
         # trim the node dimension to the batch's bucketed max (exact:
-        # trailing padding never influences real nodes)
-        N = min(self._nodes, _node_bucket(int(mask.sum(axis=2).max()) + 1))
+        # trailing padding never influences real nodes; fcnn excepted)
+        N = self._trim(mask.sum(axis=2))
         feat, left = feat[:, :, :N], left[:, :, :N]
         right, mask = right[:, :, :N], mask[:, :, :N]
         states = {"feat": self._tensor(feat.reshape(B * K, N, F)),

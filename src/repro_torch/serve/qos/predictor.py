@@ -1,6 +1,6 @@
-"""Admission-time latency predictor: a critic-shaped TreeCNN over the
-encoded syntactic plan, in PyTorch (the reference's is
-`repro/serve/qos/predictor.py`).
+"""Admission-time latency predictor: a critic-shaped encoder (TreeCNN by
+default, or the LSTM, FCNN or QueryFormer) over the encoded syntactic
+plan, in PyTorch (the reference's is `repro/serve/qos/predictor.py`).
 
 Before a query touches a lane, its syntactic plan is encoded exactly like
 a pre-execution hook state (no materialized stages, every cardinality
@@ -13,18 +13,19 @@ which the admission policy compares against the query's deadline.
     agent's critic, on the agent's device, and is calibrated from the
     first request. A fit never writes the serving critic.
   * Seeded. Without an agent the net draws the reference's weights:
-    `nets.EncoderHead` from `prng.split(prng.prng_key(seed), 2)`, the
-    reference's splits, through `prng.normal`.
+    `nets.EncoderHead` of kind `net` from `prng.split(prng.prng_key(seed),
+    2)`, the reference's splits, through `prng.normal`.
   * Training data is harvested serving traffic: `fit_from_replay` draws
     prioritized samples from `learn.ReplayBuffer` (each
     `Experience.traj.states[0]` IS the encoded pre-exec state; failed
     runs carry the timeout as their latency).
 
-On the card the encoder is the fused CUDA kernel (`nets.TreeCNN`):
-`predict_enc` runs one (1, MAX_NODES, F) forward and the head, then makes
-one device->host copy. `fit` runs each fixed-shape padded batch
+On the card the TreeCNN is the fused CUDA kernel (`nets.TreeCNN`); the
+other encoders are plain tensor ops, as in the reference. `predict_enc`
+runs one (1, MAX_NODES, F) forward and the head, then makes one
+device->host copy. `fit` runs each fixed-shape padded batch
 (batch_size, MAX_NODES) with `valid` weights through one
-`torch.autograd.grad` (the encoder's backward kernel) and one step of the
+`torch.autograd.grad` (the TreeCNN's backward kernel) and one step of the
 hand-written AdamW (`repro_torch.optim`: weight decay 0, clip 5), in
 place. `device=None` means CUDA and raises when there is none;
 `device="cpu"` is the plain path.
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import nets, prng
-from repro_torch.core.agent import param_tree
+from repro_torch.core.agent import param_tree, resolve_device
 from repro_torch.core.encoding import MAX_NODES, WorkloadMeta, encode_state
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.sql.executor import RuntimeState
@@ -73,25 +74,13 @@ class LatencyPredictor:
         self.meta = meta
         if agent is not None:
             net = agent.cfg.net
-        if net != "treecnn":
-            raise NotImplementedError(
-                f"encoder {net!r} is not ported yet (ROADMAP Queue A2); "
-                "only treecnn is")
-        if agent is not None:
             self.device = agent.device
             self.model = copy.deepcopy(agent.critic)  # warm start, no alias
         else:
-            if device is None:
-                if not torch.cuda.is_available():
-                    raise RuntimeError(
-                        "LatencyPredictor runs on CUDA by default and no "
-                        "CUDA device is available; pass device='cpu' for "
-                        "the plain path")
-                device = "cuda"
-            self.device = torch.device(device)
+            self.device = resolve_device(device, "LatencyPredictor")
             k = prng.split(prng.prng_key(seed), 2)
             self.model = nets.EncoderHead(meta.feat_dim, hidden, head_hidden,
-                                          1, k[0], k[1]).to(self.device)
+                                          1, k[0], k[1], net).to(self.device)
         self.net = net
         self.opt = adamw_init(self.params)
         self._cfg = AdamWConfig(lr=lr, weight_decay=0.0, grad_clip=5.0)

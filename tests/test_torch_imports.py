@@ -48,6 +48,8 @@ COPIES = (
     "serve/plans/superopt.py",
     "gen/__init__.py", "gen/schema.py", "gen/queries.py", "gen/streams.py",
     "gen/world.py", "serve/__init__.py",
+    "baselines/__init__.py", "baselines/spark_default.py",
+    "baselines/cbo_serve.py",
 )
 
 # Comments in the reference that name project history ("the PR-n path")

@@ -20,7 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from scenarios import FixedPredictor, fast_query, trap_query  # noqa: E402
-from torch_scenarios import (P, PKGS, ScriptedServeAgent, both,  # noqa: E402
+from torch_scenarios import (P, PKGS, both,  # noqa: E402
                              cold_agent, comp_key, job_workload,
                              max_logp_diff, meta_for, of)
 
@@ -248,14 +248,11 @@ def drift_queries():
 
 
 def replan_agent(pkg):
-    """tests/test_monitor.py's stats-driven planner: the reference's
-    `CboReplanAgent`, and its scripted copy for the port."""
+    """tests/test_monitor.py's stats-driven planner: `pkg`'s
+    `CboReplanAgent`."""
     traps, fasts = drift_queries()
-    if pkg == "repro":
-        from repro.baselines import CboReplanAgent
-        return CboReplanAgent(meta_for(pkg, traps + fasts), max_steps=3)
-    return ScriptedServeAgent(pkg, meta_for(pkg, traps + fasts),
-                              max_steps=3, action="cbo")
+    return P(pkg, "baselines").CboReplanAgent(meta_for(pkg, traps + fasts),
+                                              max_steps=3)
 
 
 def drift_stream(db):

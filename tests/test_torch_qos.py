@@ -139,15 +139,19 @@ def rel(a, b):
 def test_predictor_device_and_encoder(wl, port_fresh, monkeypatch):
     """Without a device and without an agent it asks for CUDA and raises
     without it; `device="cpu"` is the plain path; with an agent it lives
-    on the agent's device; encoders other than treecnn are not ported."""
+    on the agent's device; every encoder of the reference builds, and an
+    unknown one raises."""
     meta = WorkloadMeta.from_workload(wl)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         LatencyPredictor(meta)
     assert LatencyPredictor(meta, device="cpu").device.type == "cpu"
     assert LatencyPredictor(meta, agent=port_fresh).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A2"):
-        LatencyPredictor(meta, net="lstm", device="cpu")
+    for net in ("lstm", "fcnn", "queryformer"):
+        pred = LatencyPredictor(meta, net=net, device="cpu")
+        assert type(pred.model.enc).__name__.lower() == pred.net == net
+    with pytest.raises(ValueError, match="gru"):
+        LatencyPredictor(meta, net="gru", device="cpu")
 
 
 def test_seeded_predictor_matches_reference_initialisation(wl,

@@ -94,27 +94,19 @@ def meta_for(pkg: str, queries, max_tables: int = 3):
 
 
 class ScriptedServeAgent:
-    """scenarios.NoopServeAgent (`action="noop"`) and the reference's
-    `baselines.CboReplanAgent` (`action="cbo"`: cbo(1) wherever legal,
-    noop elsewhere), built from `pkg`'s classes."""
+    """scenarios.NoopServeAgent, built from `pkg`'s classes."""
 
-    def __init__(self, pkg: str, meta, max_steps: int = 1,
-                 action: str = "noop"):
-        kw = {"families": ("cbo", "lead", "noop")} if action == "cbo" else {}
+    def __init__(self, pkg: str, meta, max_steps: int = 1):
         self.meta = meta
-        self.cfg = P(pkg, "core.agent").AgentConfig(max_steps=max_steps, **kw)
+        self.cfg = P(pkg, "core.agent").AgentConfig(max_steps=max_steps)
         self.space = P(pkg, "core.actions").ActionSpace(meta.n_tables_max,
                                                         self.cfg.families)
-        self.action = action
 
     def act_batch(self, feat, left, right, mask, amask, keys, *,
                   explore: bool = False):
         B = amask.shape[0]
-        if self.action == "cbo":
-            acts = np.where(amask[:, 0] > 0.0, 0, self.space.noop_idx)
-        else:
-            acts = np.full(B, self.space.noop_idx)
-        return acts.astype(np.int32), np.zeros(B, np.float32), keys
+        acts = np.full(B, self.space.noop_idx, np.int32)
+        return acts, np.zeros(B, np.float32), keys
 
     def act(self, enc, am, *, explore: bool = False):
         a, lp, _ = self.act_batch(None, None, None, None, am[None],
