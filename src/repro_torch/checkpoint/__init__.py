@@ -8,9 +8,11 @@ from repro_torch.checkpoint.agent_io import (agent_state,
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.checkpoint.reference import (agent_state_from_numpy,
                                               agent_state_to_numpy,
+                                              lm_params_from_numpy,
                                               load_reference_checkpoint,
                                               params_from_numpy)
 
 __all__ = ["Checkpointer", "agent_state", "agent_state_from_numpy",
            "agent_state_to_numpy", "install_agent_state",
-           "load_reference_checkpoint", "params_finite", "params_from_numpy"]
+           "lm_params_from_numpy", "load_reference_checkpoint",
+           "params_finite", "params_from_numpy"]

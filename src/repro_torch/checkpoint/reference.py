@@ -14,6 +14,9 @@ included, and `agent_state_to_numpy` goes the other way; leaf names are
 the reference's on both sides. A list in the reference's tree (the
 QueryFormer's layers) becomes the dict keyed "0", "1", ... that the
 port's `nn.ModuleList` gives (`repro_torch.tree`).
+`lm_params_from_numpy` turns `repro.models.lm.init_params`'s pytree, as
+numpy arrays, into the parameters of the port's `models.lm`: the same
+nesting, leaves stacked on the same superblock axis.
 """
 from __future__ import annotations
 
@@ -64,6 +67,20 @@ def params_from_numpy(tree) -> Dict[str, Dict[str, torch.Tensor]]:
     such as optimizer states are ignored) -> {"actor": state_dict,
     "critic": state_dict} for `AqoraAgent.load_params`."""
     return {net: _state_dict(tree[net]) for net in ("actor", "critic")}
+
+
+def lm_params_from_numpy(tree, device) -> Dict:
+    """A reference LM parameter pytree (`repro.models.lm.init_params`,
+    each leaf converted with `np.asarray`) -> the port's LM parameters on
+    `device`, leaf for leaf, dtypes kept (a bf16 leaf arrives as numpy's
+    ml_dtypes bfloat16 and is carried across bit for bit)."""
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(np.array(a.view(np.int16)))
+            return t.view(torch.bfloat16).to(device)
+        return torch.from_numpy(np.array(a)).to(device)
+    return tree_map(leaf, tree)
 
 
 def agent_state_from_numpy(tree) -> Dict:

@@ -8,8 +8,10 @@ counter:
   tree_conv.tree_conv       — one tree-conv layer, children gathered from
                               shared memory (csrc/tree_conv.cu)
   mamba_scan.mamba_scan     — the Mamba-1 selective scan, sequential in
-                              time, each channel's states split over four
-                              lanes (csrc/mamba_scan.cu)
+                              time, each channel's states split over
+                              lanes, from a given state h0 and returning
+                              the final state h_last if asked
+                              (csrc/mamba_scan.cu)
   flash_attention.flash_attention
                             — online-softmax attention with GQA, causal,
                               sliding-window and softcap; bf16 on the

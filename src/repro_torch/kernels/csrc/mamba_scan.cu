@@ -1,13 +1,16 @@
 // Mamba-1 selective scan for Hopper (sm_90a), fp32.
 //
 // Replaces the Pallas TPU kernel repro/kernels/mamba_scan.py::mamba_scan
-// (_kernel). Per batch row b and channel d, with h = 0 at t = 0:
+// (_kernel). Per batch row b and channel d, from h_{-1} = h0 (zeros when
+// the h0 pointer is null):
 //   h_t = exp(dt_t A[d]) * h_{t-1} + (dt_t x_t) B_t,  y_t = sum_n C_t[n] h_t[n]
-// x/dt (B, S, di), A (di, N), Bs/Cs (B, S, N) -> y (B, S, di). Only y is
-// returned, as the Pallas kernel does. With a D pointer (di,) the kernel
-// also folds in the Mamba block's skip, y_t + x_t * D[d]
-// (ops.selective_scan_fused); with a null one it computes the Pallas
-// kernel's function alone.
+// x/dt (B, S, di), A (di, N), Bs/Cs (B, S, N) -> y (B, S, di). With a D
+// pointer (di,) the kernel also folds in the Mamba block's skip,
+// y_t + x_t * D[d] (ops.selective_scan_fused); with a null one it computes
+// the Pallas kernel's function alone. It also writes h_last (B, di, N),
+// the state after the last step, which a Mamba prefill keeps for decoding
+// (the Pallas kernel returns only y; the reference's model takes h_last
+// from its jnp scan).
 //
 // Bound on an H100: at falcon-mamba-7b's widths (B=1, S=2048, di=8192,
 // N=16) a call reads x and dt and writes y, 201 MB, 0.060 ms at 3.35 TB/s.
@@ -44,6 +47,11 @@
 //   chunks on 3 buffers measured slower).
 // - y goes back through shared memory, a chunk at a time, in coalesced
 //   128-byte rows, with the skip term added there from the staged x.
+// - h0 and h_last are each lane's own P states, read into the h[P]
+//   registers before the time loop and written from them after it: 2 x
+//   4 MB at falcon-mamba-7b's prefill (B = 8), against 268 MB of x, dt and
+//   y. Steps past S in the last chunk are zero-filled, so dt = 0 there and
+//   h passes them unchanged (exp(0) h + 0).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -110,7 +118,8 @@ __global__ void __launch_bounds__(Layout<L, P>::kThreads,
 mamba_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ A, const float* __restrict__ Bs,
                   const float* __restrict__ Cs, const float* __restrict__ D,
-                  float* __restrict__ y, int S, int di) {
+                  const float* __restrict__ h0, float* __restrict__ y,
+                  float* __restrict__ h_last, int S, int di) {
   using Lay = Layout<L, P>;
   constexpr int N = Lay::N, T = Lay::kThreads;
   constexpr int kRows = T / kCh;                 // x rows a pass copies
@@ -131,13 +140,17 @@ mamba_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int d0 = blockIdx.x * kCh;
   const int chunks = (S + kT - 1) / kT;
 
+  // this lane's P states of channel d0 + ch in A, h0 and h_last
+  const bool live = d0 + ch < di;
+  const size_t hoff =
+      (static_cast<size_t>(blockIdx.y) * di + d0 + ch) * N + lane * P;
   float a[P], h[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) {
-    a[j] = d0 + ch < di
+    a[j] = live
                ? __ldg(A + static_cast<size_t>(d0 + ch) * N + lane * P + j)
                : 0.f;
-    h[j] = 0.f;
+    h[j] = (live && h0 != nullptr) ? __ldg(h0 + hoff + j) : 0.f;
   }
 
   // Per-thread constants of the copies and the write-back: thread tid
@@ -270,12 +283,17 @@ mamba_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   }
   __syncthreads();
   write_back(chunks - 1);
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) h_last[hoff + j] = h[j];
+  }
 }
 
 template <int L, int P>
 cudaError_t launch(const float* x, const float* dt, const float* A,
-                   const float* Bs, const float* Cs, const float* D, float* y,
-                   int B, int S, int di, cudaStream_t stream) {
+                   const float* Bs, const float* Cs, const float* D,
+                   const float* h0, float* y, float* h_last, int B, int S,
+                   int di, cudaStream_t stream) {
   using Lay = Layout<L, P>;
   constexpr size_t smem = sizeof(float) * Lay::kFloats;
   static bool opted_in = false;
@@ -288,38 +306,47 @@ cudaError_t launch(const float* x, const float* dt, const float* A,
   }
   const dim3 grid((di + kCh - 1) / kCh, B);
   mamba_scan_kernel<L, P><<<grid, Lay::kThreads, smem, stream>>>(
-      x, dt, A, Bs, Cs, D, y, S, di);
+      x, dt, A, Bs, Cs, D, h0, y, h_last, S, di);
   return cudaGetLastError();
 }
 
 template <int N>
 cudaError_t launch_n(const float* x, const float* dt, const float* A,
                      const float* Bs, const float* Cs, const float* D,
-                     float* y, int B, int S, int di, cudaStream_t stream) {
+                     const float* h0, float* y, float* h_last, int B, int S,
+                     int di, cudaStream_t stream) {
   constexpr int L = lanes_for(N);
-  return launch<L, N / L>(x, dt, A, Bs, Cs, D, y, B, S, di, stream);
+  return launch<L, N / L>(x, dt, A, Bs, Cs, D, h0, y, h_last, B, S, di,
+                          stream);
 }
 
 }  // namespace
 
 // C entry point (loaded with ctypes). All pointers are device pointers of
-// contiguous float32 tensors; D (di,) may be null (no skip term); `stream`
-// is a cudaStream_t. N must be 4, 8, 16 or 32. Returns cudaGetLastError()
-// after the launch (0 = launched).
+// contiguous float32 tensors; D (di,) may be null (no skip term), h0
+// (B, di, N) may be null (start from zeros), h_last (B, di, N) may not;
+// `stream` is a cudaStream_t. N must be 4, 8, 16 or 32,
+// S at least 1. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int mamba_scan_forward(const float* x, const float* dt,
                                   const float* A, const float* Bs,
-                                  const float* Cs, const float* D, float* y,
+                                  const float* Cs, const float* D,
+                                  const float* h0, float* y, float* h_last,
                                   int B, int S, int di, int N, void* stream) {
-  if (B == 0 || S == 0 || di == 0) return 0;
-  if (B < 0 || B > 65535 || S < 0 || di < 0)
+  if (B < 0 || B > 65535 || S < 1 || di < 0 || h_last == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || di == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (N) {
-    case 4: e = launch_n<4>(x, dt, A, Bs, Cs, D, y, B, S, di, s); break;
-    case 8: e = launch_n<8>(x, dt, A, Bs, Cs, D, y, B, S, di, s); break;
-    case 16: e = launch_n<16>(x, dt, A, Bs, Cs, D, y, B, S, di, s); break;
-    case 32: e = launch_n<32>(x, dt, A, Bs, Cs, D, y, B, S, di, s); break;
+#define MAMBA_SCAN_CASE(n)                                                  \
+  case n:                                                                   \
+    e = launch_n<n>(x, dt, A, Bs, Cs, D, h0, y, h_last, B, S, di, s);       \
+    break;
+    MAMBA_SCAN_CASE(4)
+    MAMBA_SCAN_CASE(8)
+    MAMBA_SCAN_CASE(16)
+    MAMBA_SCAN_CASE(32)
+#undef MAMBA_SCAN_CASE
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

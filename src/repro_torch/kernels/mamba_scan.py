@@ -4,9 +4,11 @@ plain PyTorch version is in `ref`).
 Replaces `repro/kernels/mamba_scan.py::mamba_scan` (the Pallas TPU kernel
 `_kernel`): h_t = exp(dt_t·A)⊙h_{t−1} + (dt_t·x_t)⊗B_t from h = 0 and
 y_t = Σ_n C_t[n]·h_t[:, n]; x/dt (B, S, di), A (di, N), Bs/Cs (B, S, N)
--> y (B, S, di). Only y is returned, as the Pallas kernel does. Given
-`D` (di,), the kernel adds the Mamba block's skip term x·D in its
-write-back, so `ops.selective_scan_fused` is one launch.
+-> y (B, S, di). Given `D` (di,), the kernel adds the Mamba block's skip
+term x·D in its write-back, so `ops.selective_scan_fused` is one launch.
+Beyond the Pallas kernel, which returns y alone, it starts from a given
+state `h0` (B, di, N) and also returns the state after the last step,
+h_last (B, di, N): what a Mamba prefill leaves in the decode cache.
 
 What bounds it on an H100: device memory and the special-function
 units. At falcon-mamba-7b's widths a call reads x and dt and writes y,
@@ -20,7 +22,7 @@ is that order of sums); h is rounded op by op as the plain version
 rounds it; x, dt, B and C arrive in shared memory by
 asynchronous copies, chunks ahead (csrc/mamba_scan.cu says more).
 
-`mamba_scan` runs its plain version, y of `ref.mamba_scan_ref`, for CPU
+`mamba_scan` runs its plain version, `ref.mamba_scan_ref`, for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
 `launches` counts launches.
 """
@@ -37,16 +39,19 @@ STATES = (4, 8, 16, 32)   # the kernel's state sizes N
 launches = 0              # kernel launches (not plain-version calls)
 
 
-def _check(x, dt, A, Bs, Cs, D=None):
+def _check(x, dt, A, Bs, Cs, D=None, h0=None):
     if x.dim() != 3 or A.dim() != 2:
         raise ValueError(f"x must be (B, S, di) and A (di, N), got "
                          f"{tuple(x.shape)} and {tuple(A.shape)}")
     B, S, di = x.shape
     N = A.shape[1]
+    if S < 1:
+        raise ValueError("the scan needs at least one time step")
     for t, name, shape in ((x, "x", (B, S, di)), (dt, "dt", (B, S, di)),
                            (A, "A", (di, N)), (Bs, "Bs", (B, S, N)),
                            (Cs, "Cs", (B, S, N)),
-                           *(() if D is None else ((D, "D", (di,)),))):
+                           *(() if D is None else ((D, "D", (di,)),)),
+                           *(() if h0 is None else ((h0, "h0", (B, di, N)),))):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if t.dtype != torch.float32:
@@ -62,43 +67,50 @@ def _library():
     from repro_torch.kernels import build
     fn = build.load("mamba_scan").mamba_scan_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x, dt, A, Bs, Cs, y, D=None) -> int:
-    """Launch the kernel on checked CUDA tensors (D may be None); returns
-    the CUDA error code (0 = launched)."""
+def _launch(x, dt, A, Bs, Cs, y, h_last, D=None, h0=None) -> int:
+    """Launch the kernel on checked CUDA tensors (D and h0 may be None);
+    returns the CUDA error code (0 = launched)."""
     B, S, di = x.shape
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         return _library()(*(t.data_ptr() for t in (x, dt, A, Bs, Cs)),
-                          None if D is None else D.data_ptr(), y.data_ptr(),
+                          ptr(D), ptr(h0), y.data_ptr(), h_last.data_ptr(),
                           B, S, di, A.shape[1],
                           torch.cuda.current_stream().cuda_stream)
 
 
-def mamba_scan(x, dt, A, Bs, Cs, D=None):
+def mamba_scan(x, dt, A, Bs, Cs, D=None, h0=None):
     """Selective scan. x/dt (B, S, di), A (di, N), Bs/Cs (B, S, N) and,
-    if given, the skip weights D (di,), all float32, contiguous and on one
-    device. Returns y (B, S, di) float32, plus x·D if D is given."""
+    if given, the skip weights D (di,) and the initial state h0
+    (B, di, N), all float32, contiguous and on one device; S >= 1.
+    Returns (y (B, S, di), plus x·D if D is given; h_last (B, di, N)),
+    float32."""
     global launches
-    _check(x, dt, A, Bs, Cs, D)
+    _check(x, dt, A, Bs, Cs, D, h0)
     if x.device.type == "cpu":
-        y = ref.mamba_scan_ref(x, dt, A, Bs, Cs)[0]
-        return y if D is None else y + x * D
+        y, h = ref.mamba_scan_ref(x, dt, A, Bs, Cs, h0)
+        return (y if D is None else y + x * D), h
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if A.shape[1] not in STATES:
         raise ValueError(f"the kernel takes N in {STATES}, got N={A.shape[1]}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
-            for t in (x, dt, A, Bs, Cs, D)):
+            for t in (x, dt, A, Bs, Cs, D, h0)):
         raise NotImplementedError("the mamba_scan kernel has no backward")
     y = torch.empty_like(x)
-    err = _launch(x, dt, A, Bs, Cs, y, D)
+    h_last = torch.empty((x.shape[0], x.shape[2], A.shape[1]),
+                         dtype=torch.float32, device=x.device)
+    err = _launch(x, dt, A, Bs, Cs, y, h_last, D, h0)
     if err != 0:
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
     launches += 1
-    return y
+    return y, h_last

@@ -22,11 +22,12 @@ def mha_flash(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
     return out.reshape(B, H, Sq, hd).transpose(1, 2)
 
 
-def selective_scan_fused(x, dt, A, Bs, Cs, D_skip):
-    """Mamba block core: y + x * D_skip in fp32, D_skip (di,); h_last is
-    not returned, as the Pallas kernel returns none. One launch: the
-    kernel adds the skip term as it writes y."""
-    return mamba_scan(x, dt, A, Bs, Cs, D=D_skip)
+def selective_scan_fused(x, dt, A, Bs, Cs, D_skip, h0=None):
+    """Mamba block core with `models.mamba.selective_scan`'s contract:
+    (y + x * D_skip, h_last) in fp32, D_skip (di,), from the state h0
+    (B, di, N) or zeros. One launch: the kernel adds the skip term as it
+    writes y, and writes h_last after the last step."""
+    return mamba_scan(x, dt, A, Bs, Cs, D=D_skip, h0=h0)
 
 
 def tree_conv_batch(feat, left, right, mask, params):

@@ -1,0 +1,122 @@
+"""Batched LM server: prefill a static batch of prompts into KV/SSM
+caches from `lm.init_cache`, then decode in lockstep (the reference's
+`repro.launch.serve`).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+      --smoke --requests 8 --prompt-len 64 --gen 32 [--device cpu]
+
+It runs on CUDA unless given `device="cpu"` (`--device cpu`), and raises
+without a CUDA device otherwise. Attention goes through the
+flash-attention kernel and a Mamba prefill through the scan kernel
+(`kernels.ops`); everything else is eager torch (no `torch.compile`, no
+CUDA graph). The server decodes from its serving copy of the weights
+(`lm.serving_params`), cast once.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.core.agent import resolve_device
+from repro_torch.models import lm
+from repro_torch.tree import tree_map
+
+
+class BatchedServer:
+    """Static-batch decode server (the dry-run's serve_step semantics):
+    admits up to `max_batch` requests, prefills them together, then decodes
+    lockstep.
+
+    `params`: the parameters (`lm.init_params`'s tree, e.g. a reference's
+    carried across by `checkpoint.lm_params_from_numpy`), moved to the
+    device; without them, `lm.init_params` seeded from `seed` by a
+    `torch.Generator` on the device. The server keeps only their serving
+    copy (`serving`)."""
+
+    def __init__(self, cfg, *, max_batch: int = 8, max_len: int = 512,
+                 seed: int = 0, params=None, device=None):
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.device = resolve_device(device, "BatchedServer")
+        if params is None:
+            gen = torch.Generator(self.device).manual_seed(seed)
+            params = lm.init_params(gen, cfg, device=self.device)
+        self.serving = lm.serving_params(
+            tree_map(lambda t: t.to(self.device), params), cfg)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def generate(self, prompts: np.ndarray, gen_tokens: int,
+                 greedy: bool = True, seed: int = 0):
+        """prompts: (B, P) int32. Returns ((B, gen_tokens) int32, stats):
+        prefill and decode seconds (host clock, to a synchronize) and
+        generated tokens per decode second. `greedy=False` samples from a
+        `torch.Generator` seeded with `seed`."""
+        cfg, dev, params = self.cfg, self.device, self.serving
+        B, P = prompts.shape
+        memory = None
+        if cfg.family == "vlm":
+            memory = torch.zeros((B, cfg.vision_tokens, cfg.d_model),
+                                 dtype=cfg.cdtype, device=dev)
+        if cfg.encoder is not None:
+            frames = torch.zeros((B, cfg.encoder.n_frames, cfg.d_model),
+                                 dtype=torch.float32, device=dev)
+            memory = lm.encode(params, frames, cfg)
+        tokens = torch.as_tensor(np.asarray(prompts, np.int64), device=dev)
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, tokens, cfg,
+                                   max_len=P + gen_tokens, memory=memory)
+        self._sync()
+        prefill_s = time.perf_counter() - t0
+        out = torch.zeros((B, gen_tokens), dtype=torch.int64, device=dev)
+        gen = torch.Generator(dev).manual_seed(seed)
+        tok = logits.argmax(-1)[:, None]
+        t0 = time.perf_counter()
+        for t in range(gen_tokens):
+            out[:, t] = tok[:, 0]
+            logits, cache = lm.decode_step(params, tok, cache, cfg, P + t)
+            if greedy:
+                tok = logits.argmax(-1)[:, None]
+            else:
+                tok = torch.multinomial(torch.softmax(logits, -1), 1,
+                                        generator=gen)
+        self._sync()
+        decode_s = time.perf_counter() - t0
+        return out.cpu().numpy().astype(np.int32), {
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "tok_per_s": B * gen_tokens / max(decode_s, 1e-9)}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list(registry.ARCHS))
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--device", default=None,
+                    help="cpu for the plain path; CUDA by default")
+    args = ap.parse_args()
+    cfg = registry.get_config(args.arch)
+    if args.smoke:
+        cfg = registry.reduced(cfg)
+    server = BatchedServer(cfg, max_batch=args.requests, device=args.device)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(2, cfg.vocab_size,
+                           (args.requests, args.prompt_len)).astype(np.int32)
+    out, stats = server.generate(prompts, args.gen)
+    print(f"prefill {stats['prefill_s']:.2f}s decode {stats['decode_s']:.2f}s "
+          f"({stats['tok_per_s']:.0f} tok/s) sample: {out[0, :10].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,122 @@
+"""Shared model primitives: norms, RoPE, activations, initializers.
+
+Functional, as the reference's `repro.models.common`: every module is an
+``init_*(gen, ...) -> params`` (a dict of tensors) plus an ``apply`` that
+takes the params dict. Norm math runs in fp32 regardless of compute dtype.
+
+Initializers draw from an explicit `torch.Generator` with the reference's
+distributions (``normal_init`` is stddev * N(0, 1) in fp32, then cast).
+The draws are not `jax.random`'s: tests carry the reference's weights
+across (`checkpoint.lm_params_from_numpy`). Every initializer takes `lead`,
+the leading axes its tensors are stacked on (the superblock axis), and on
+the ``meta`` device draws nothing.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def normal_init(gen, shape, dtype, stddev=0.02, *, device):
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    if t.device.type != "meta":
+        t.normal_(generator=gen).mul_(stddev)
+    return t.to(dtype)
+
+
+# ---------------------------------------------------------------- norms
+def init_norm(shape, kind: str, dtype, *, device):
+    if kind == "rmsnorm":
+        return {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    elif kind == "layernorm":
+        return {"scale": torch.ones(shape, dtype=dtype, device=device),
+                "bias": torch.zeros(shape, dtype=dtype, device=device)}
+    raise ValueError(kind)
+
+
+def apply_norm(params, x, kind: str, eps: float = 1e-6,
+               unit_offset: bool = False):
+    """unit_offset: gemma-style (1 + scale) parameterization."""
+    xf = x.float()
+    scale = params["scale"].float()
+    if unit_offset:
+        scale = scale + 1.0
+    if kind == "rmsnorm":
+        var = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * scale
+    elif kind == "layernorm":
+        mean = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mean) * torch.rsqrt(var + eps) * scale \
+            + params["bias"].float()
+    else:
+        raise ValueError(kind)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- rope
+def rope_freqs(hd: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd) rotated pairwise-half style; positions: (S,) or
+    (B, S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., None].float() * freqs            # (..., S, hd/2)
+    angles = angles[..., None, :]                            # (..., S, 1, hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- activations
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")        # jax.nn.gelu's default
+
+
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": _gelu, "relu": F.relu}[name]
+
+
+def softcap(x, cap: float):
+    """Gemma-2 logit soft-capping; cap <= 0 disables."""
+    if cap and cap > 0:
+        return cap * torch.tanh(x / cap)
+    return x
+
+
+def scaled(x, s: float):
+    """x * s with s first rounded to x's dtype, as jax multiplies a tensor
+    by a Python float; x itself for s = 1."""
+    if s == 1.0:
+        return x
+    return x * torch.tensor(s, dtype=x.dtype, device=x.device)
+
+
+# ---------------------------------------------------------------- dense
+def init_dense(gen, d_in, d_out, dtype, bias=False, stddev=0.02, name="w", *,
+               lead=(), device):
+    p = {name: normal_init(gen, (*lead, d_in, d_out), dtype, stddev,
+                           device=device)}
+    if bias:
+        p[name + "_bias"] = torch.zeros((*lead, d_out), dtype=dtype,
+                                        device=device)
+    return p
+
+
+def apply_dense(p, x, name="w", cdtype=None):
+    """x @ p[name] (+ bias), both cast to `cdtype` first. A weight already
+    in `cdtype` (the server's serving copy, `lm.serving_params`) is used
+    as it is: `.to` returns it uncopied."""
+    w = p[name]
+    if cdtype is not None:
+        w = w.to(cdtype)
+        x = x.to(cdtype)
+    y = x @ w
+    if name + "_bias" in p:
+        y = y + p[name + "_bias"].to(y.dtype)
+    return y

@@ -50,6 +50,11 @@ COPIES = (
     "gen/world.py", "serve/__init__.py",
     "baselines/__init__.py", "baselines/spark_default.py",
     "baselines/cbo_serve.py",
+    "configs/registry.py", "configs/dbrx_132b.py",
+    "configs/falcon_mamba_7b.py", "configs/gemma2_27b.py",
+    "configs/jamba_15_large.py", "configs/llama32_vision_90b.py",
+    "configs/llama4_scout_17b.py", "configs/minicpm3_4b.py",
+    "configs/qwen15_4b.py", "configs/qwen3_8b.py", "configs/whisper_tiny.py",
 )
 
 # Comments in the reference that name project history ("the PR-n path")

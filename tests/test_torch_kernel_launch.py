@@ -4,6 +4,8 @@ Run there with `python -m pytest -q -m gpu tests/test_torch_kernel_launch.py`;
 elsewhere every test skips. This file imports no jax: the machine with the
 card has none.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -420,11 +422,40 @@ def test_mamba_scan_one_launch_per_call(cuda, B, S, di, N):
     x, dt, A, Bs, Cs, D = (t.to(cuda) for t in _scan(B, S, di, N))
     with torch.inference_mode():
         before = ms.launches
-        out = ops.selective_scan_fused(x, dt, A, Bs, Cs, D)
+        out, h = ops.selective_scan_fused(x, dt, A, Bs, Cs, D)
         assert ms.launches == before + 1
-        want = ref.mamba_scan_ref(x, dt, A, Bs, Cs)[0] + x * D
+        want, h_want = ref.mamba_scan_ref(x, dt, A, Bs, Cs)
+        want = want + x * D
     torch.cuda.synchronize()
     _close(out, want, 1e-4)
+    _close(h, h_want, 1e-4)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+@pytest.mark.parametrize("S", [1, 31, 33, 2048])
+def test_mamba_scan_state_in_and_out(cuda, S, N, with_h0):
+    """h0 read and h_last written by the kernel, around its 32-step chunks
+    (the last chunk's zero-filled steps must leave h as it is), at every
+    state size and d_inner = 200: y and h_last against
+    `ref.mamba_scan_ref(h0=...)` to the scan's 1e-4; a null h0 pointer
+    gives, bit for bit, what zeros give."""
+    x, dt, A, Bs, Cs, D = (t.to(cuda) for t in _scan(2, S, 200, N, seed=S))
+    h0 = (torch.from_numpy(np.random.default_rng(N).standard_normal(
+        (2, 200, N)).astype(np.float32)).to(cuda) if with_h0 else None)
+    with torch.inference_mode():
+        before = ms.launches
+        y, h = ms.mamba_scan(x, dt, A, Bs, Cs, D=D, h0=h0)
+        assert ms.launches == before + 1
+        y_want, h_want = ref.mamba_scan_ref(x, dt, A, Bs, Cs, h0)
+        y_want = y_want + x * D
+        y0, h0_out = ms.mamba_scan(x, dt, A, Bs, Cs, D=D, h0=torch.zeros(
+            (2, 200, N), device=cuda))
+    torch.cuda.synchronize()
+    _close(y, y_want, 1e-4)
+    _close(h, h_want, 1e-4)
+    if h0 is None:
+        assert torch.equal(y, y0) and torch.equal(h, h0_out)
 
 
 @pytest.mark.parametrize("B,with_D", [(1, False), (3, True)])
@@ -438,7 +469,7 @@ def test_mamba_scan_edges(cuda, S, N, B, with_D):
     D = D if with_D else None
     with torch.inference_mode():
         before = ms.launches
-        out = ms.mamba_scan(x, dt, A, Bs, Cs, D=D)
+        out, _ = ms.mamba_scan(x, dt, A, Bs, Cs, D=D)
         assert ms.launches == before + 1
         want = ref.mamba_scan_ref(x, dt, A, Bs, Cs)[0]
         if with_D:
@@ -455,7 +486,7 @@ def test_mamba_scan_sums_in_the_kernels_order(cuda):
     x, dt, A, Bs, Cs, _ = (t.to(cuda) for t in _scan(1, 2048, 96, 16,
                                                        seed=2048))
     with torch.inference_mode():
-        out = ms.mamba_scan(x, dt, A, Bs, Cs)
+        out, _ = ms.mamba_scan(x, dt, A, Bs, Cs)
         want = ref.mamba_scan_lanes_ref(x, dt, A, Bs, Cs, lanes=8)
     torch.cuda.synchronize()
     _close(out, want, 1e-5)
@@ -602,3 +633,92 @@ def test_ops_kernels_reject_unsupported_widths_on_card(cuda):
     kv = torch.zeros((2, 64, 32), device=cuda)
     with pytest.raises(NotImplementedError):             # no backward
         fa.flash_attention(qg, kv, kv)
+
+
+# ------------------------------------------------------- the LM serving path
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.launch.serve import BatchedServer  # noqa: E402
+from repro_torch.models import attention, lm, moe  # noqa: E402
+
+
+def _kernel_layers(cfg):
+    """(attention layers on the kernel's route, Mamba layers) of a stack."""
+    attn = sum(s.mixer != "mamba" and cfg.mla is None
+               and attention.kernel_route(attention.MIXER_KIND[s.mixer],
+                                          cfg.hd, cfg.hd)
+               for s in cfg.block_pattern) * cfg.n_superblocks
+    mamba = sum(s.mixer == "mamba" for s in cfg.block_pattern) \
+        * cfg.n_superblocks
+    return attn, mamba
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b",
+                                  "gemma2-27b", "whisper-tiny",
+                                  "jamba-1.5-large-398b"])
+def test_lm_serves_through_the_kernels(cuda, arch, dtype, tol,
+                                      monkeypatch):
+    """A reduced arch's `generate` on the card launches flash_attention
+    once a kernel-route attention layer a step (and once an encoder
+    layer) and mamba_scan once a Mamba layer at the prefill; its prefill
+    and 3 decode steps (fed the CPU's greedy tokens) agree with the CPU's
+    plain versions within `tol` of the largest |logit| (1e-4 in fp32; in
+    bf16 3e-2, the dense archs' limit in tests/torch_lm_cases.py). An MoE
+    layer on the card takes the experts the CPU chose, with the card's own
+    gates: a token near a tie of router probabilities would otherwise go
+    to another expert where bf16 rounds the other way."""
+    cfg = dataclasses.replace(registry.reduced(registry.get_config(arch)),
+                              compute_dtype=dtype)
+    route, routes = moe.route, []
+
+    def record(probs, K):
+        gate, eidx = route(probs, K)
+        routes.append(eidx)
+        return gate, eidx
+
+    def impose(probs, K):
+        eidx = routes.pop(0).to(probs.device)
+        gate = probs.gather(-1, eidx)
+        return gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), eidx
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    prompts = np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (2, 16)).astype(np.int32)
+    attn, mamba = _kernel_layers(cfg)
+    enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    card = BatchedServer(cfg, params=params, device=cuda)
+    fa_before, ms_before = fa.launches, ms.launches
+    card.generate(prompts, 6)
+    torch.cuda.synchronize()
+    assert fa.launches - fa_before == attn * (1 + 6) + enc
+    assert ms.launches - ms_before == mamba
+    logits = {}
+    for dev, server in (("cpu", BatchedServer(cfg, params=params,
+                                              device="cpu")), ("cuda", card)):
+        toks = torch.as_tensor(prompts.astype(np.int64), device=dev)
+        memory = None
+        if cfg.encoder is not None:
+            memory = lm.encode(server.serving, torch.zeros(
+                (2, cfg.encoder.n_frames, cfg.d_model), device=dev), cfg)
+        if cfg.family == "vlm":
+            memory = torch.zeros((2, cfg.vision_tokens, cfg.d_model),
+                                 dtype=cfg.cdtype, device=dev)
+        monkeypatch.setattr(moe, "route", record if dev == "cpu" else impose)
+        with torch.inference_mode():
+            out, cache = lm.prefill(server.serving, toks, cfg, 16 + 3,
+                                    memory=memory)
+            steps = [out.float().cpu()]
+            for s in range(3):
+                tok = (logits["cpu"][s] if dev == "cuda" else steps[-1]) \
+                    .argmax(-1)[:, None].to(dev)
+                out, cache = lm.decode_step(server.serving, tok, cache, cfg,
+                                            16 + s)
+                steps.append(out.float().cpu())
+        logits[dev] = steps
+        if dev == "cpu":
+            assert bool(routes) == (cfg.moe is not None)
+    assert not routes
+    scale = max(float(t.abs().max()) for t in logits["cpu"])
+    for want, got in zip(logits["cpu"], logits["cuda"]):
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= tol * scale

@@ -1,0 +1,17 @@
+"""The port's language models against the JAX package's, on the CPU, with
+compute_dtype="float32": all ten architectures' reduced configs,
+`forward`, `prefill` (logits and cache) and 8 `decode_step`s on the
+reference's seeded weights, every logit within 1e-4 of the largest
+(tests/torch_lm_cases.py states the limits).
+"""
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.configs import registry as jregistry  # noqa: E402
+from torch_lm_cases import run_case  # noqa: E402
+
+
+@pytest.mark.parametrize("arch", jregistry.ARCHS)
+def test_forward_prefill_decode_match_reference(arch):
+    run_case(arch, "float32")

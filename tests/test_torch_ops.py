@@ -96,7 +96,7 @@ def test_mamba_scan_plain_matches_pallas(B, S, di, N, chunk, bd):
     want = jax_mamba_scan(*map(jnp.asarray, args), chunk=chunk, block_d=bd,
                           interpret=True)
     before = ms.launches
-    out = ms.mamba_scan(*map(torch.from_numpy, args))
+    out, _ = ms.mamba_scan(*map(torch.from_numpy, args))
     assert ms.launches == before
     _assert_close(out, want, 1e-4)
 
@@ -127,7 +127,8 @@ def test_mamba_scan_lanes_ref_rejects_other_lane_counts(lanes):
                                       (2, 1, 16, 32)])
 def test_selective_scan_fused_skip_matches_reference_ops(B, S, di, N):
     """The skip term the kernel now adds (mamba_scan's D) against
-    repro.kernels.ops.selective_scan_fused, and mamba_scan without D
+    repro.kernels.ops.selective_scan_fused, the h_last the port's wrapper
+    also returns against the reference's oracle, and mamba_scan without D
     against the Pallas kernel alone."""
     args = _scan_inputs(B, S, di, N, seed=B * 100 + S + di + N)
     D = np.random.default_rng(N).standard_normal(di).astype(np.float32)
@@ -135,13 +136,41 @@ def test_selective_scan_fused_skip_matches_reference_ops(B, S, di, N):
                                      chunk=16, interpret=True)
     before = ms.launches
     targs = list(map(torch.from_numpy, args))
-    out = ops.selective_scan_fused(*targs, torch.from_numpy(D))
+    out, h = ops.selective_scan_fused(*targs, torch.from_numpy(D))
     _assert_close(out, want, 1e-4)
-    _assert_close(ms.mamba_scan(*targs, D=torch.from_numpy(D)), want, 1e-4)
-    _assert_close(ms.mamba_scan(*targs),
+    _assert_close(h, jref.mamba_scan_ref(*map(jnp.asarray, args))[1], 1e-4)
+    _assert_close(ms.mamba_scan(*targs, D=torch.from_numpy(D))[0], want,
+                  1e-4)
+    _assert_close(ms.mamba_scan(*targs)[0],
                   jax_mamba_scan(*map(jnp.asarray, args), chunk=16,
                                  interpret=True), 1e-4)
     assert ms.launches == before
+
+
+@pytest.mark.parametrize("S", [1, 37])
+def test_mamba_scan_state_matches_reference_oracle(S):
+    """`mamba_scan` from a given h0: y and h_last against
+    the reference's `mamba_scan_ref(h0=...)`; a prefill's h_last carried
+    into a second call continues the scan."""
+    args = _scan_inputs(2, S, 24, 8, seed=S)
+    h0 = np.random.default_rng(S + 1).standard_normal(
+        (2, 24, 8)).astype(np.float32)
+    y_want, h_want = jref.mamba_scan_ref(*map(jnp.asarray, args),
+                                         jnp.asarray(h0))
+    targs = list(map(torch.from_numpy, args))
+    y, h = ms.mamba_scan(*targs, h0=torch.from_numpy(h0))
+    _assert_close(y, y_want, 1e-4)
+    _assert_close(h, h_want, 1e-4)
+    if S > 1:
+        cut = S // 2
+        first = [t[:, :cut].contiguous() if t.dim() == 3 and t.shape[1] == S
+                 else t for t in targs]
+        rest = [t[:, cut:].contiguous() if t.dim() == 3 and t.shape[1] == S
+                else t for t in targs]
+        _, h1 = ms.mamba_scan(*first, h0=torch.from_numpy(h0))
+        y2, h2 = ms.mamba_scan(*rest, h0=h1)
+        _assert_close(y2, np.asarray(y_want)[:, cut:], 1e-4)
+        _assert_close(h2, h_want, 1e-4)
 
 
 def test_mamba_scan_checks_the_skip_weights():
@@ -150,6 +179,8 @@ def test_mamba_scan_checks_the_skip_weights():
         ms.mamba_scan(*targs, D=torch.zeros(8))
     with pytest.raises(TypeError, match="D must be"):
         ms.mamba_scan(*targs, D=torch.zeros(16, dtype=torch.float64))
+    with pytest.raises(ValueError, match="h0 must have shape"):
+        ms.mamba_scan(*targs, h0=torch.zeros(1, 16, 8))
 
 
 # ---------------------------------------------------------------- tree conv
@@ -214,6 +245,8 @@ def test_ops_wrapper_matches_reference_ops(name):
         targs.append({k: torch.from_numpy(v) for k, v in params.items()})
     want = getattr(jops, name)(*jargs, interpret=True, **kw)
     out = getattr(ops, name)(*targs, **kw)
+    if name == "selective_scan_fused":        # the port's adds h_last
+        out = out[0]
     assert out.shape == want.shape
     assert out.dtype == TORCH_DTYPE[str(want.dtype)]
     _assert_close(out, want, tol)
