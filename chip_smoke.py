@@ -188,8 +188,33 @@ copy's weights a step reads over 3.35 TB/s), the last LM_PROFILED steps
 under torch.profiler (device busy ms, idle share, time by kernel; null
 if the profiler returned no device events), the device ms a step spends
 copying k and v out of the cache for the kernel, and peak device memory.
-Every check runs before any fails. It runs last, after every
+Every check runs before any fails. It runs after every other
 torch.profiler reading.
+
+Then the `train_lm` phase, the LM training path (`launch.train`'s
+train step: `lm.loss_fn` with remat, autograd, AdamW) on the card, each
+model built from torch.Generator("cuda").manual_seed(0) and freed before
+the next: qwen3-8b at full width and 12 of its 36 layers (3.56 B
+parameters: fp32 params, grads and both moments take 57 GB), 4 steps on
+4 x 1024 tokens; falcon-mamba-7b at full width and 16 of its 64 layers, 3
+steps on 2 x 512 tokens (its scan's backward is the plain version, a
+Python loop over the sequence); batches from `SyntheticLMPipeline(seed=0)`,
+lr 3e-4 on the driver's cosine. Each step must launch flash_attention
+(or mamba_scan) exactly twice a layer, the forward and the remat
+re-forward, and nothing else of the two; every loss must be finite.
+Before the steps, layer 0's superblock, forward and backward, through
+the kernels' autograd Functions is held against the same superblock
+through the plain versions (`Tap`): the output and every gradient within
+TRAIN_LAYER_TOL, each kernel call's output at the ops phase's limits;
+two planted faults (one element of the call's output, one of the
+gradient it returns) must take more than TRAIN_FAULT_SHARE times their
+limits; and the first TRAIN_CPU_LAYERS layers against the CPU (loss and
+gradient norm). The line gives ms a step (median after the first),
+tokens/s, peak GB, the last step under torch.profiler (device busy ms,
+idle share, top kernels), and the step's model FLOPs and their share of
+989 TFLOP/s. Then `launch.train.train` itself, at the reduced
+qwen1.5-4b: 6 steps with an asynchronous checkpoint, then a restore that
+runs 2 more, under a temporary directory in build/; its loss must fall.
 
 With `--profile`, one more card serve runs under `torch.profiler`: its
 line gives the device's busy time by kernel and its idle share of the
@@ -198,7 +223,7 @@ wall time.
 Then the kernels summary line (the encoder rows' launches sum the serve,
 learn, qos, control, gen and ablate phases', and the train, learn, qos,
 control and ablate phases' for the backward; the attention and scan rows
-the lm and ops phases'), the `nvidia-smi` line, and
+the lm, train_lm and ops phases'), the `nvidia-smi` line, and
 the result line `{"ok": true, "device": {...}}`. Any failure raises and
 exits non-zero (the learn, qos, control, gen and ablate phases check
 every case first and name each mismatch); without CUDA the script exits
@@ -214,6 +239,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -236,15 +262,21 @@ from repro_torch.core.agent import (AgentConfig, AqoraAgent,  # noqa: E402
 from repro_torch.core.dqn import DQNAgent  # noqa: E402
 from repro_torch.core.encoding import WorkloadMeta, encode_state  # noqa: E402
 from repro_torch.core.train_loop import evaluate, train_agent  # noqa: E402
+from repro_torch.data import SyntheticLMPipeline  # noqa: E402
 from repro_torch.experiments import main_experiment  # noqa: E402
 from repro_torch.gen.world import sample_world  # noqa: E402
 from repro_torch.kernels import build, ops, ref, tree_conv  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
+from repro_torch.launch.steps import loss_and_grads  # noqa: E402
+from repro_torch.launch.train import batch_on  # noqa: E402
+from repro_torch.launch.train import make_train_step as train_step_fn  # noqa: E402,E501
+from repro_torch.launch.train import train as train_lm  # noqa: E402
 from repro_torch.learn import (AdaptiveCurriculum, PolicyStore,  # noqa: E402
                                TrajectoryHarvester, make_online_loop)
-from repro_torch.models import attention, lm  # noqa: E402
+from repro_torch.models import attention, blocks, lm  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, global_norm  # noqa: E402,E501
 from repro_torch.serve.deltas import DeltaBatch, apply_delta  # noqa: E402
 from repro_torch.serve.drift import DriftController, RefreshPolicy  # noqa: E402
 from repro_torch.serve.driver import (TenantTraffic,  # noqa: E402
@@ -267,7 +299,7 @@ from repro_torch.sql.catalog import analyze  # noqa: E402
 from repro_torch.sql.cbo import Estimator  # noqa: E402
 from repro_torch.sql.executor import AdaptiveRun  # noqa: E402
 from repro_torch.sql.plans import syntactic_plan  # noqa: E402
-from repro_torch.tree import flatten, tree_map  # noqa: E402
+from repro_torch.tree import flatten, tree_map, unflatten  # noqa: E402
 
 CKPT = ROOT / "results" / "aqora_ckpt" / "step_00000018"
 TOL = 1e-4                 # the reference's own fused-vs-jnp tolerance
@@ -2443,6 +2475,484 @@ def phase_lm():
     return total
 
 
+# ---------------------------------------------------------- train_lm phase
+# (arch, layers kept of the published depth, batch, sequence, steps): the
+# published widths; the depth cut so that fp32 params, grads and both
+# AdamW moments (16 B a parameter) fit one 80 GB card with the step's
+# transients: qwen3-8b 12 of 36 layers (3.56 B parameters, 57 GB),
+# falcon-mamba-7b 16 of 64 (2.0 B, 32 GB; fewer steps and tokens for the
+# plain scan backward, a Python loop over the sequence)
+TRAIN_LM_CELLS = (("qwen3-8b", 12, 4, 1024, 4),
+                  ("falcon-mamba-7b", 16, 2, 512, 3))
+TRAIN_LM_LR = 3e-4
+# layer 0's superblock, forward and backward, through the kernels'
+# autograd Functions against the same superblock through the plain
+# versions, on the card, both in the config's bf16. The two differ by the
+# kernels' own roundings (ATTN_BF16; the scan's 1e-4), which the layer's
+# bf16 ops carry on (into the cotangents too): the output and each
+# gradient (the input's and every parameter's) within TRAIN_LAYER_TOL of
+# the plain one in norm, ||kernel - plain|| <= TRAIN_LAYER_TOL ||plain||
+# (not elementwise: two gradients of one bf16 tensor differ by a few of
+# its roundings, 2^-8 each, which an element left small by cancellation
+# does not bound). Each
+# kernel call's output at the ops phase's elementwise limits; the
+# gradients a call's Function returns against autograd through the plain
+# version on the call's own inputs and the cotangent it received, each
+# within TRAIN_GRAD_RTOL of the gradient's largest |value| (the same
+# ops: the Function's backward is that plain version).
+TRAIN_LAYER_TOL = 2e-2
+TRAIN_GRAD_RTOL = 1e-5
+# a planted fault, one element of a kernel call's output (or of the
+# gradient it returns for its first input) moved by the largest |value|
+# of that tensor, must take more than this many times its limit
+TRAIN_FAULT_SHARE = 10.0
+# card against CPU: the first TRAIN_CPU_LAYERS layers of the same
+# weights, the first batch cut to TRAIN_CPU_TOKENS tokens of one row:
+# the loss within TRAIN_CPU_LOSS_RTOL and the gradient norm within
+# TRAIN_CPU_GNORM_RTOL of the CPU's (both bf16 compute, rounded at other
+# places: cuBLAS against the CPU's GEMMs, the kernels against the plain
+# versions)
+TRAIN_CPU_LAYERS, TRAIN_CPU_TOKENS = 2, 64
+TRAIN_CPU_LOSS_RTOL, TRAIN_CPU_GNORM_RTOL = 1e-2, 5e-2
+# the driver itself, `launch.train.train` at the reduced qwen1.5-4b: 6
+# steps with an asynchronous checkpoint at step 3 (a blocking one at 6),
+# then a restore that runs 2 more
+DRIVER = {"arch": "qwen1.5-4b", "steps": 6, "global_batch": 8,
+          "seq_len": 64, "ckpt_every": 3}
+DRIVER_MORE = 2
+
+
+def plain_mha(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
+    """`ops.mha_flash` by the plain version, differentiable, on any
+    device."""
+    B, Sq, H, hd = q.shape
+    qf, kf, vf = (t.transpose(1, 2).reshape(-1, t.shape[1], hd)
+                  for t in (q, k, v))
+    out = ref.flash_attention_ref(qf, kf, vf, causal=causal, window=window,
+                                  softcap=softcap, scale=scale)
+    return out.reshape(B, H, Sq, hd).transpose(1, 2)
+
+
+def plain_scan(x, dt, A, Bs, Cs, D_skip, h0=None):
+    """`ops.selective_scan_fused` by the plain version."""
+    y, h = ref.mamba_scan_ref(x, dt, A, Bs, Cs, h0)
+    return y + x * D_skip, h
+
+
+def bumped(t):
+    """`t` with its middle element moved by the largest |value| of `t`."""
+    bump = torch.zeros(t.numel(), dtype=t.dtype, device=t.device)
+    bump[t.numel() // 2] = t.detach().abs().max()
+    return t + bump.view(t.shape)
+
+
+class Tap:
+    """Stands in for `ops.mha_flash` and `ops.selective_scan_fused` while
+    one superblock runs forward and backward: calls the kernel path (or,
+    with `plain`, the plain versions above) and keeps each call's inputs,
+    its output and, by hooks, the gradients of its inputs. `fault`
+    ("out" or "grad") moves one element of the first call's output, or
+    of the gradient it returns for its first input, by that tensor's
+    largest |value|: a planted fault."""
+
+    NAMES = ("mha_flash", "selective_scan_fused")
+
+    def __init__(self, plain=False, fault=None):
+        self.plain, self.fault, self.calls = plain, fault, []
+        self.saved = {n: getattr(ops, n) for n in self.NAMES}
+
+    def __enter__(self):
+        for name, fn in zip(self.NAMES, (plain_mha, plain_scan)):
+            setattr(ops, name, self._wrap(fn if self.plain
+                                          else self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(ops, name, fn)
+
+    def _wrap(self, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            first = out[0] if isinstance(out, tuple) else out
+            rec = {"args": tuple(a.detach().clone() if torch.is_tensor(a)
+                                 else a for a in args), "kw": kw,
+                   "grads": {}}
+            if self.fault == "out" and not self.calls:
+                first = bumped(first)
+                out = (first, *out[1:]) if isinstance(out, tuple) else first
+            rec["out"] = first.detach().clone()
+            if first.requires_grad:
+                first.register_hook(self._keep_cotangent(rec))
+            for i, a in enumerate(args):
+                if torch.is_tensor(a) and a.requires_grad:
+                    a.register_hook(self._hook(rec, i))
+            self.calls.append(rec)
+            return out
+        return call
+
+    @staticmethod
+    def _keep_cotangent(rec):
+        def keep(g):
+            rec["g_out"] = g.detach().clone()
+        return keep
+
+    def _hook(self, rec, i):
+        def keep(g):
+            if self.fault == "grad" and i == 0 and rec is self.calls[0]:
+                g = bumped(g)
+            rec["grads"][i] = g.detach().clone()
+            return g
+        return keep
+
+
+def norm_closeness(case, got, want):
+    """The relative norm ||got - want|| / ||want|| against
+    TRAIN_LAYER_TOL."""
+    got, want = got.float(), want.float()
+    rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    return {"case": case, "ok": bool(torch.isfinite(got).all())
+            and rel <= TRAIN_LAYER_TOL, "rel_norm_err": rel,
+            "limit_share": rel / TRAIN_LAYER_TOL}
+
+
+def call_grads_check(rec):
+    """The gradients one kernel call's Function returned against
+    autograd through the plain version on the call's own inputs and the
+    cotangent it received: rows of each input's gradient, elementwise
+    within TRAIN_GRAD_RTOL of its largest |value|."""
+    args = [a.detach().requires_grad_(i in rec["grads"])
+            if torch.is_tensor(a) else a for i, a in enumerate(rec["args"])]
+    plain = plain_mha if len(args) == 3 else plain_scan
+    with torch.enable_grad():
+        out = plain(*args, **rec["kw"])
+        first = out[0] if isinstance(out, tuple) else out
+        want = torch.autograd.grad(first, [args[i] for i in rec["grads"]],
+                                   rec["g_out"])
+    rows = []
+    for (i, got), w in zip(rec["grads"].items(), want):
+        scale = TRAIN_GRAD_RTOL * float(w.float().abs().max())
+        rows.append(closeness(f"call/grad{i}", got, w, max(scale, 1e-30),
+                              0.0))
+    return rows
+
+
+def superblock0(params, cfg, tokens, tap):
+    """Layer 0's superblock forward and backward on the embedded tokens,
+    under `tap`, with a fixed random cotangent. Returns (output,
+    {"x": input grad, path: parameter grad})."""
+    sb = blocks.unstack(params["stack"], cfg.n_superblocks)[0]
+    leaves = {path: t.detach().requires_grad_(True)
+              for path, t in flatten(sb)}
+    with torch.no_grad():
+        x = lm._embed(params, tokens, cfg)
+    x.requires_grad_(True)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    gen = torch.Generator(tokens.device).manual_seed(1)
+    with tap:
+        out, _ = blocks.apply_superblock(unflatten(sb, leaves), x, cfg,
+                                         positions=positions)
+        w = torch.randn(out.shape, generator=gen, device=out.device)
+        grads = torch.autograd.grad((out.float() * w).sum(),
+                                    [x, *leaves.values()])
+    return out.detach(), dict(zip(["x", *leaves], grads))
+
+
+def layer0_checks(arch, params, cfg, tokens):
+    """Layer 0 through the kernels' Functions against the plain versions:
+    rows for the output, every gradient, each kernel call's output and
+    input gradients; then each planted fault's share of its limits."""
+    def compare(kernel, plain):
+        (out_k, g_k), tap_k = kernel
+        (out_p, g_p), tap_p = plain
+        rows = [norm_closeness("superblock/out", out_k, out_p)]
+        rows += [norm_closeness(f"superblock/grad/{p}", g_k[p], g_p[p])
+                 for p in g_p]
+        for ck in tap_k.calls:
+            if len(ck["args"]) == 3:                     # attention
+                qf, kf, vf, of = flat_attention(ck)
+                atol, rtol = ATTN_BF16["prefill"]
+                rows.append(attention_closeness(
+                    "call/attention/out", qf, kf, vf, of, ck["kw"], atol,
+                    rtol))
+            else:                                        # the scan, with D
+                rows.append(closeness("call/scan/out", ck["out"],
+                                      plain_scan(*ck["args"], **ck["kw"])[0],
+                                      1e-4, 1e-4))
+            rows += call_grads_check(ck)
+        if len(tap_k.calls) != len(tap_p.calls) or not tap_k.calls:
+            rows.append({"case": "calls", "ok": False,
+                         "kernel": len(tap_k.calls),
+                         "plain": len(tap_p.calls)})
+        return rows
+
+    def run(tap):
+        return superblock0(params, cfg, tokens, tap), tap
+    plain = run(Tap(plain=True))
+    before = counts()
+    kernel = run(Tap())
+    after = counts()
+    rows = compare(kernel, plain)
+    launched = {k: after[k] - before[k] for k in after}
+    if sum(launched.values()) != len(kernel[1].calls):
+        rows.append({"case": "one launch a call", "ok": False,
+                     "launches": launched, "calls": len(kernel[1].calls)})
+    faults = {}
+    for fault in ("out", "grad"):
+        shares = [r.get("limit_share", float("inf"))
+                  for r in compare(run(Tap(fault=fault)), plain)]
+        faults[fault] = max(shares)
+    ok = all(r["ok"] for r in rows) and \
+        min(faults.values()) > TRAIN_FAULT_SHARE
+    return {"arch": arch, "ok": ok, "launches": launched,
+            "worst": max(rows, key=lambda r: r.get("limit_share",
+                                                   float("inf"))),
+            "bad": [r for r in rows if not r["ok"]], "checked": len(rows),
+            "planted_fault_shares": faults}
+
+
+def train_card_vs_cpu(params, cfg, tokens):
+    """The first TRAIN_CPU_LAYERS layers of the card's weights, on the
+    card and copied to the CPU: loss and gradient norm of one row of
+    TRAIN_CPU_TOKENS tokens."""
+    small = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
+    card = dict(params, stack=tree_map(lambda t: t[:small.n_superblocks],
+                                       params["stack"]))
+    toks = tokens[:1, :TRAIN_CPU_TOKENS]
+    t0 = time.perf_counter()
+    out = {}
+    for side, p in (("cuda", card), ("cpu", tree_map(lambda t: t.cpu(),
+                                                     card))):
+        (loss, _), grads = loss_and_grads(p, {"tokens": toks.to(side)},
+                                          small)
+        out[side] = (float(loss), float(global_norm(grads)))
+        del grads
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    row = {"layers": TRAIN_CPU_LAYERS, "tokens": TRAIN_CPU_TOKENS,
+           "loss": {"cuda": lc, "cpu": lp, "rel": abs(lc - lp) / abs(lp),
+                    "rtol": TRAIN_CPU_LOSS_RTOL},
+           "grad_norm": {"cuda": gc, "cpu": gp, "rel": abs(gc - gp) / gp,
+                         "rtol": TRAIN_CPU_GNORM_RTOL},
+           "seconds": time.perf_counter() - t0}
+    row["ok"] = row["loss"]["rel"] <= TRAIN_CPU_LOSS_RTOL and \
+        row["grad_norm"]["rel"] <= TRAIN_CPU_GNORM_RTOL
+    return row
+
+
+def step_flops(cfg, B, S):
+    """Model FLOPs of a train step (6 a weight a token for each matmul
+    weight, the head's included, plus attention's 4·hd a causal query and
+    key pair a head, three times), and the FLOPs the card runs: the same
+    with the remat re-forwards (2 a weight a token more) and attention
+    twice more."""
+    T = B * S
+    layer_w = sum(t.numel() for path, t in flatten(
+        lm.init_params(None, cfg, device="meta")["stack"])
+        if t.dim() >= 3 and not path.endswith(("conv_w", "A_log")))
+    head_w = cfg.d_model * cfg.vocab_size
+    attn_layers = cfg.n_superblocks * sum(
+        s.mixer != "mamba" for s in cfg.block_pattern)
+    attn = attn_layers * 4 * B * cfg.n_heads * cfg.hd * S * (S + 1) / 2
+    model = 6 * (layer_w + head_w) * T + 3 * attn
+    # + the superblocks' and the CE chunk's re-forwards, and attention
+    # once more in the kernel Function's backward (the plain version's)
+    return model, model + 2 * (layer_w + head_w) * T + 2 * attn
+
+
+def train_cell(arch, layers, B, S, steps, bad):
+    """One model of the train_lm phase: layer-0 checks, card against CPU,
+    then `steps` train steps with every count at 0 before each and read
+    after it. Returns the row and the launches."""
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = lm.init_params(gen, cfg, device="cuda")
+    opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
+    pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                               global_batch=B, seed=0, n_logical_shards=B,
+                               shard_range=(0, B))      # B rows a batch
+    first = batch_on(pipe.batch_at(0), cfg, "cuda")
+    torch.cuda.synchronize()
+    walls["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layer0 = layer0_checks(arch, params, cfg, first["tokens"])
+    if not layer0["ok"]:
+        bad.append(f"{arch}: layer 0 through the kernels: {layer0}")
+    walls["layer0_s"] = time.perf_counter() - t0
+    vs_cpu = train_card_vs_cpu(params, cfg, first["tokens"])
+    if not vs_cpu["ok"]:
+        bad.append(f"{arch}: card and CPU disagree: {vs_cpu}")
+    attn_layers = cfg.n_superblocks * sum(
+        s.mixer != "mamba" and cfg.mla is None and attention.kernel_route(
+            attention.MIXER_KIND[s.mixer], cfg.hd, cfg.hd)
+        for s in cfg.block_pattern)
+    mamba_layers = cfg.n_superblocks * sum(
+        s.mixer == "mamba" for s in cfg.block_pattern)
+    # the forward and the remat re-forward, a layer a step
+    want = {"flash_attention": 2 * attn_layers,
+            "mamba_scan": 2 * mamba_layers}
+    step_fn = train_step_fn(cfg, AdamWConfig(lr=TRAIN_LM_LR), steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, times, per_step, profile = [], [], [], None
+    for s in range(steps):
+        batch = batch_on(next(pipe), cfg, "cuda")
+        torch.cuda.synchronize()
+        fa.launches = ms.launches = 0
+        if s == steps - 1 and steps > 2:     # the last step, profiled
+            profile, metrics = profiled_step(step_fn, params, opt, batch)
+            params, opt = profile.pop("state")
+        else:
+            t0 = time.perf_counter()
+            params, opt, _, metrics = step_fn(params, opt, 0, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        per_step.append({"flash_attention": fa.launches,
+                         "mamba_scan": ms.launches})
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    walls["steps_s"] = time.perf_counter() - t0
+    launches = {k: sum(p[k] for p in per_step) for k in want}
+    if any(p != want for p in per_step):
+        bad.append(f"{arch}: a step launched {per_step}, want {want}")
+    if not all(np.isfinite(losses)):
+        bad.append(f"{arch}: a loss is not finite: {losses}")
+    step_s = float(np.median(times[1:])) if len(times) > 1 else times[0]
+    model_flops, remat_flops = step_flops(cfg, B, S)
+    row = {"arch": arch, "layers": layers, "published_layers":
+           registry.get_config(arch).n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": cfg.param_count(),
+           "reduced": [f"n_layers {layers} of "
+                       f"{registry.get_config(arch).n_layers}"],
+           "batch": B, "seq": S, "steps": steps, "lr": TRAIN_LM_LR,
+           "losses": losses, "step_s": times, "step_ms_median":
+           step_s * 1e3, "tokens_per_s": B * S / step_s,
+           "peak_mem_gb": peak, "launches_per_step": per_step,
+           "want_launches_per_step": want,
+           "model_tflop": model_flops / 1e12,
+           "model_tflop_with_remat": remat_flops / 1e12,
+           "mfu_bf16": model_flops / step_s / BF16_FLOPS,
+           "hfu_bf16_with_remat": remat_flops / step_s / BF16_FLOPS,
+           "step_floor_ms": remat_flops / BF16_FLOPS * 1e3,
+           "profiled_step": profile, "layer0": layer0, "card_vs_cpu": vs_cpu,
+           "walls": walls}
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def profiled_step(step_fn, params, opt, batch):
+    """One train step under torch.profiler: wall ms to a synchronize,
+    device busy ms (the sum of its kernels: one stream), idle share and
+    the top kernels by device time. Device activity only: falcon's step
+    runs ~250 k kernels, and the host ops' events would take minutes to
+    read back. The events are read once; null where none came back."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, _, metrics = step_fn(params, opt, 0, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    row = {"wall_ms": wall, "device_busy_ms": None,
+           "device_idle_share": None, "by_kernel_ms": [],
+           "read_s": time.perf_counter() - t0 - wall / 1e3,
+           "state": (params, opt)}
+    if by_kernel:
+        busy = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+        by_class = {}
+        for name, t in by_kernel.items():
+            c = kernel_class(name)
+            by_class[c] = by_class.get(c, 0.0) + t
+        row.update(device_busy_ms=busy, device_idle_share=1 - busy / wall,
+                   device_kernels=len(by_kernel), by_class_ms=by_class,
+                   by_kernel_ms=[{"name": k[:80], "ms": v} for k, v in top])
+    return row, metrics
+
+
+def kernel_class(name: str) -> str:
+    """A device kernel's class by its name: the port's two LM kernels,
+    cuBLAS products, reductions, or elementwise and copies."""
+    for kernel in ("flash_wgmma_kernel", "flash_decode_kernel",
+                   "flash_f32_kernel", "mamba_scan_kernel"):
+        if kernel in name:
+            return kernel
+    if any(k in name for k in ("gemm", "nvjet", "xmma", "gemv", "cutlass")):
+        return "matmul"
+    if "reduce_kernel" in name:
+        return "reduction"
+    return "elementwise and copies"
+
+
+def train_driver(bad):
+    """`launch.train.train` itself on the card at the reduced qwen1.5-4b:
+    DRIVER's steps with an asynchronous checkpoint, then a restore that
+    runs DRIVER_MORE more; a temporary directory under build/."""
+    cfg = registry.reduced(registry.get_config(DRIVER["arch"]))
+    per_step = 2 * cfg.n_superblocks * len(cfg.block_pattern)
+    (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        kw = {k: v for k, v in DRIVER.items() if k != "steps"}
+        fa.launches = ms.launches = 0
+        _, losses = train_lm(**kw, steps=DRIVER["steps"], ckpt_dir=tmp,
+                             log_every=0, device="cuda")
+        launched = fa.launches
+        on_disk = Checkpointer(tmp).steps()
+        _, more = train_lm(**kw, steps=DRIVER["steps"] + DRIVER_MORE,
+                           ckpt_dir=tmp, restore=True, log_every=0,
+                           device="cuda")
+        after = Checkpointer(tmp).steps()
+    row = {"arch": DRIVER["arch"] + " (reduced)", **DRIVER,
+           "losses": losses, "launches": launched,
+           "want_launches": per_step * DRIVER["steps"],
+           "checkpoints": on_disk, "restored_losses": more,
+           "checkpoints_after_restore": after,
+           "seconds": time.perf_counter() - t0}
+    row["ok"] = (launched == row["want_launches"]
+                 and all(np.isfinite(losses + more))
+                 and losses[-1] < losses[0]
+                 and on_disk == [DRIVER["ckpt_every"], DRIVER["steps"]]
+                 and len(more) == DRIVER_MORE
+                 and after[-1] == DRIVER["steps"] + DRIVER_MORE)
+    if not row["ok"]:
+        bad.append(f"train driver: {row}")
+    return row, launched
+
+
+def phase_train_lm():
+    """The LM training path on the card: each TRAIN_LM_CELLS model at
+    full width (cut depth), then the driver. Every check runs before any
+    fails. Returns the phase's launches."""
+    bad, rows = [], []
+    total = {"flash_attention": 0, "mamba_scan": 0}
+    t0 = time.perf_counter()
+    for cell in TRAIN_LM_CELLS:
+        row, launched = train_cell(*cell, bad)
+        rows.append(row)
+        total = {k: total[k] + launched[k] for k in total}
+    driver, launched = train_driver(bad)
+    total["flash_attention"] += launched
+    emit({"phase": "train_lm", "models": rows, "driver": driver,
+          "launches": total, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": nvidia_smi(), "ok": not bad, "mismatches": bad})
+    if bad:
+        raise AssertionError(f"train_lm phase: {bad}")
+    return total
+
+
 # -------------------------------------------------------------- ops phase
 # (case, B, Sq, Sk, H, K, hd, causal, window, softcap, dtype, atol, rtol,
 #  the one SDPA call that computes the same function: "is_causal" (top-left
@@ -2851,6 +3361,7 @@ def main() -> int:
     ops_launches, ops_rows = phase_ops(tree, db, wl, meta)
     phase_late_profiles(bwd_timing, trained, trajs, ablate_profiled)
     lm_launches = phase_lm()
+    train_lm_launches = phase_train_lm()
     summary = [{
         "name": "tree_cnn_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tree_cnn_fused.cu",
@@ -2887,7 +3398,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": ops_launches[name] + lm_launches.get(name, 0),
+            "launches": ops_launches[name] + lm_launches.get(name, 0)
+            + train_lm_launches.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}, "case": case})

@@ -9,15 +9,21 @@ write falls back to the step before) and rebuilds `tree_like`'s
 structure from the leaf paths; `keep_last` prunes older steps. So a
 checkpoint the port writes restores in the reference and the other way
 round. Leaves are saved from tensors (or arrays) and restored as CPU
-tensors. `save` writes synchronously, so there is never a write in
-flight: the reference's `blocking=False` and `wait` are not ported yet
-(their one caller is the LM trainer, `launch/train.py`, ROADMAP A13).
+tensors.
+
+`save(..., blocking=False)` snapshots every leaf to a host numpy array of
+its own (a copy, also of a CPU tensor, which training updates in place
+after the call) and writes them in a background thread, overlapping the
+next training steps; `wait()` joins it. A save first waits for the one
+before it, so two writers never run at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import pathlib
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -28,9 +34,16 @@ from repro_torch.tree import flatten, unflatten
 
 
 def _flatten(tree) -> List[Tuple[str, np.ndarray]]:
-    return [(name, np.array(leaf.detach().cpu().numpy()
-                            if isinstance(leaf, torch.Tensor) else leaf))
+    """(path, host array) per leaf, each array a copy of its own."""
+    return [(name, leaf.detach().to("cpu", copy=True).numpy()
+             if isinstance(leaf, torch.Tensor) else np.array(leaf))
             for name, leaf in flatten(tree)]
+
+
+@dataclasses.dataclass
+class _Pending:
+    thread: threading.Thread
+    step: int
 
 
 class Checkpointer:
@@ -38,39 +51,58 @@ class Checkpointer:
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep_last = keep_last
+        self._pending: Optional[_Pending] = None
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, tree,
-             extra: Optional[Dict[str, Any]] = None) -> bool:
-        """Returns True if the checkpoint was written, False if `step`
-        already exists on disk and the save was skipped."""
+    def save(self, step: int, tree, extra: Optional[Dict[str, Any]] = None,
+             blocking: bool = True) -> bool:
+        """Returns True if the checkpoint was written (or enqueued),
+        False if `step` already exists on disk and the save was skipped."""
+        self.wait()                                # never two writers racing
         if step in self.steps():
             return False                           # already committed
-        d = self.dir / f"step_{step:08d}"
-        tmp = self.dir / f".tmp_step_{step:08d}"
-        tmp.mkdir(parents=True, exist_ok=True)
-        manifest = {"step": step, "extra": dict(extra or {}), "arrays": {},
-                    "time": time.time()}
-        for name, arr in _flatten(tree):
-            fn = name.replace("/", "__") + ".npy"
-            np.save(tmp / fn, arr)
-            manifest["arrays"][name] = {
-                "file": fn, "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
-                "sha1": hashlib.sha1(arr.tobytes()).hexdigest(),
-            }
-        # manifest LAST = commit point
-        (tmp / "MANIFEST.json").write_text(json.dumps(manifest))
-        tmp.rename(d)
-        self._prune()
+        leaves = _flatten(tree)                    # snapshot NOW (host copy)
+        extra = dict(extra or {})
+
+        def write():
+            d = self.dir / f"step_{step:08d}"
+            tmp = self.dir / f".tmp_step_{step:08d}"
+            tmp.mkdir(parents=True, exist_ok=True)
+            manifest = {"step": step, "extra": extra, "arrays": {},
+                        "time": time.time()}
+            for name, arr in leaves:
+                fn = name.replace("/", "__") + ".npy"
+                np.save(tmp / fn, arr)
+                manifest["arrays"][name] = {
+                    "file": fn, "shape": list(arr.shape),
+                    "dtype": str(arr.dtype),
+                    "sha1": hashlib.sha1(arr.tobytes()).hexdigest(),
+                }
+            # manifest LAST = commit point
+            (tmp / "MANIFEST.json").write_text(json.dumps(manifest))
+            tmp.rename(d)
+            self._prune()
+
+        if blocking:
+            write()
+        else:
+            t = threading.Thread(target=write, daemon=True)
+            t.start()
+            self._pending = _Pending(t, step)
         return True
+
+    def wait(self):
+        """Join the save in flight, if any."""
+        if self._pending is not None:
+            self._pending.thread.join()
+            self._pending = None
 
     def next_step(self, hint: int = 0) -> int:
         """Smallest step >= `hint` that is strictly newer than every step
-        on disk: safe to save() (no silent skip-existing) and the newest
-        once saved, so restore() picks it up. `save` is synchronous, so
-        no step is in flight to count."""
-        return max([hint] + [s + 1 for s in self.steps()])
+        on disk or in flight: safe to save() (no silent skip-existing)
+        and the newest once saved, so restore() picks it up."""
+        pending = [self._pending.step + 1] if self._pending else []
+        return max([hint] + pending + [s + 1 for s in self.steps()])
 
     # ------------------------------------------------------------- restore
     def steps(self) -> List[int]:

@@ -26,6 +26,14 @@ O(Sq·window) (csrc/flash_attention.cu says more).
 `flash_attention` runs its plain version, `ref.flash_attention_ref`, for
 CPU tensors only; for CUDA tensors it launches a kernel or raises.
 `launches` counts launches.
+
+Gradients: the kernel has no backward, nor has the reference's Pallas
+kernel. With gradients on, a CUDA call goes through `FlashAttention`, a
+`torch.autograd.Function` whose forward launches the kernel and keeps q,
+k and v, and whose backward runs the plain version again on them under
+autograd and returns its gradients (the shape of the reference's
+`tree_cnn_fused` VJP: the kernel forward, a recomputation backward). On
+the CPU the plain version is differentiable as it is.
 """
 from __future__ import annotations
 
@@ -114,12 +122,49 @@ def _launch(q, k, v, out, *, causal, window, softcap, scale) -> int:
             torch.cuda.current_stream().cuda_stream)
 
 
+def _forward(q, k, v, *, causal, window, softcap, scale):
+    """One counted kernel launch on checked CUDA tensors."""
+    global launches
+    out = torch.empty_like(q)
+    err = _launch(q, k, v, out, causal=causal, window=window,
+                  softcap=softcap, scale=scale)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes the plain version
+    (`ref.flash_attention_ref`) on the saved q, k and v and returns its
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        want = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(w)
+                   for t, w in zip(ctx.saved_tensors, want)]
+            out = ref.flash_attention_ref(*qkv, **ctx.kw)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, w in zip(qkv, want) if w], g))
+        return (*(next(grads) if w else None for w in want),
+                None, None, None, None)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None):
     """q (BH, Sq, hd), k/v (BKV, Sk, hd) with BH % BKV == 0, all float32
     or all bfloat16, contiguous and on one device. Scale defaults to
-    hd^-0.5. Returns (BH, Sq, hd) in q's dtype."""
-    global launches
+    hd^-0.5. Returns (BH, Sq, hd) in q's dtype; with gradients on and an
+    input that needs one, differentiable (`FlashAttention`)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -131,12 +176,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("the flash_attention kernel has no "
-                                  "backward")
-    out = torch.empty_like(q)
-    err = _launch(q, k, v, out, causal=causal, window=window,
-                  softcap=softcap, scale=scale)
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    launches += 1
-    return out
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    return _forward(q, k, v, causal=causal, window=window, softcap=softcap,
+                    scale=scale)

@@ -25,6 +25,15 @@ asynchronous copies, chunks ahead (csrc/mamba_scan.cu says more).
 `mamba_scan` runs its plain version, `ref.mamba_scan_ref`, for CPU
 tensors only; for CUDA tensors it launches the kernel or raises.
 `launches` counts launches.
+
+Gradients: the kernel has no backward, nor has the reference's Pallas
+kernel. With gradients on, a CUDA call goes through `MambaScan`, a
+`torch.autograd.Function` whose forward launches the kernel (with D and
+h0) and keeps its inputs, and whose backward runs the plain version
+again on them (plus x·D) under autograd and returns the gradients of x,
+dt, A, Bs, Cs, D and h0. That plain backward is a Python loop over the
+S steps, each a few small launches. On the CPU the plain version is
+differentiable as it is.
 """
 from __future__ import annotations
 
@@ -87,25 +96,9 @@ def _launch(x, dt, A, Bs, Cs, y, h_last, D=None, h0=None) -> int:
                           torch.cuda.current_stream().cuda_stream)
 
 
-def mamba_scan(x, dt, A, Bs, Cs, D=None, h0=None):
-    """Selective scan. x/dt (B, S, di), A (di, N), Bs/Cs (B, S, N) and,
-    if given, the skip weights D (di,) and the initial state h0
-    (B, di, N), all float32, contiguous and on one device; S >= 1.
-    Returns (y (B, S, di), plus x·D if D is given; h_last (B, di, N)),
-    float32."""
+def _forward(x, dt, A, Bs, Cs, D, h0):
+    """One counted kernel launch on checked CUDA tensors."""
     global launches
-    _check(x, dt, A, Bs, Cs, D, h0)
-    if x.device.type == "cpu":
-        y, h = ref.mamba_scan_ref(x, dt, A, Bs, Cs, h0)
-        return (y if D is None else y + x * D), h
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if A.shape[1] not in STATES:
-        raise ValueError(f"the kernel takes N in {STATES}, got N={A.shape[1]}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, dt, A, Bs, Cs, D, h0)):
-        raise NotImplementedError("the mamba_scan kernel has no backward")
     y = torch.empty_like(x)
     h_last = torch.empty((x.shape[0], x.shape[2], A.shape[1]),
                          dtype=torch.float32, device=x.device)
@@ -114,3 +107,57 @@ def mamba_scan(x, dt, A, Bs, Cs, D=None, h0=None):
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
     launches += 1
     return y, h_last
+
+
+def _plain(x, dt, A, Bs, Cs, D, h0):
+    """The kernel's function by its plain version: (y (+ x·D), h_last)."""
+    y, h = ref.mamba_scan_ref(x, dt, A, Bs, Cs, h0)
+    return (y if D is None else y + x * D), h
+
+
+class MambaScan(torch.autograd.Function):
+    """The kernel forward; the backward recomputes the plain version on
+    the saved inputs and returns its gradients (None where an input is
+    absent or needs none)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bs, Cs, D, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bs, Cs, D, h0)
+        return _forward(x, dt, A, Bs, Cs, D, h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        saved = ctx.saved_tensors       # once: a remat checkpoint unpacks once
+        want = [w and t is not None
+                for t, w in zip(saved, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(w)
+                   for t, w in zip(saved, want)]
+            outs = [(o, g) for o, g in zip(_plain(*ins), (gy, gh))
+                    if g is not None]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in outs], [t for t, w in zip(ins, want) if w],
+                [g for _, g in outs], allow_unused=True))
+        return tuple(next(grads) if w else None for w in want)
+
+
+def mamba_scan(x, dt, A, Bs, Cs, D=None, h0=None):
+    """Selective scan. x/dt (B, S, di), A (di, N), Bs/Cs (B, S, N) and,
+    if given, the skip weights D (di,) and the initial state h0
+    (B, di, N), all float32, contiguous and on one device; S >= 1.
+    Returns (y (B, S, di), plus x·D if D is given; h_last (B, di, N)),
+    float32; with gradients on and an input that needs one,
+    differentiable (`MambaScan`)."""
+    _check(x, dt, A, Bs, Cs, D, h0)
+    if x.device.type == "cpu":
+        return _plain(x, dt, A, Bs, Cs, D, h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if A.shape[1] not in STATES:
+        raise ValueError(f"the kernel takes N in {STATES}, got N={A.shape[1]}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bs, Cs, D, h0)):
+        return MambaScan.apply(x, dt, A, Bs, Cs, D, h0)
+    return _forward(x, dt, A, Bs, Cs, D, h0)

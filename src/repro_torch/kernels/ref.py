@@ -128,15 +128,18 @@ def mamba_scan_ref(x, dt, A, Bs, Cs, h0=None):
     Returns (y (B, S, di), h_last (B, di, N)), fp32."""
     B, S, di = x.shape
     A = A.float()
-    xf, dtf, Bf, Cf = x.float(), dt.float(), Bs.float(), Cs.float()
+    # the steps' slices as views from one unbind each: under autograd
+    # their gradients are stacked once, not added into a zeroed (B, S, ...)
+    # tensor at every step
+    xs, dts, Bs_, Cs_ = (t.float().unbind(1) for t in (x, dt, Bs, Cs))
     h = (torch.zeros((B, di, A.shape[1]), dtype=torch.float32,
                      device=x.device) if h0 is None else h0.float())
     ys = []
     for t in range(S):
-        a = torch.exp(dtf[:, t, :, None] * A)                 # (B, di, N)
-        b = (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        a = torch.exp(dts[t][..., None] * A)                  # (B, di, N)
+        b = (dts[t] * xs[t])[..., None] * Bs_[t][:, None, :]
         h = a * h + b
-        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+        ys.append(torch.einsum("bdn,bn->bd", h, Cs_[t]))
     return torch.stack(ys, dim=1), h
 
 

@@ -1,2 +1,3 @@
 """Entry points that drive the models: `serve.BatchedServer`, the batched
-LM server."""
+LM server; `train.train`, the LM training driver; `steps`, the train,
+prefill and serve step functions."""

@@ -3,12 +3,25 @@
 A *superblock* is one repetition of ``cfg.block_pattern``. As in the
 reference (`repro.models.blocks`), the stack's parameters (and a decode
 cache) are stacked on a leading superblock axis; the forward loops over
-that axis in Python, with no scan and no remat (the port serves; training
-comes later).
+that axis in Python where the reference scans it.
+
+Remat: with `remat=True` (the reference's default) and gradients on, each
+superblock runs under `torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)`, the reference's `jax.checkpoint` with
+`nothing_saveable`: the forward keeps only each superblock's input, and
+the backward runs the superblock's forward again before its own. Serving
+passes `remat=False` (and runs without gradients, where it changes
+nothing).
+
+The stacked parameters are cut into superblocks with `unbind`, so that
+their gradient is assembled once, by one stack of the superblocks'
+gradients, where a slice a superblock would each add a whole stacked
+tensor of zeros.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -111,14 +124,26 @@ def superblock(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
-def apply_stack(params, x, cfg, *, positions, cache=None, memory=None):
-    """Superblock after superblock of the stacked `params`; the stacked
-    `cache`, if given, is updated in place. Returns (x, aux_sum)."""
+def unstack(tree, n: int):
+    """The n superblocks of a stacked tree, each a tree of views."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
+
+
+def apply_stack(params, x, cfg, *, positions, cache=None, memory=None,
+                remat: bool = True):
+    """Superblock after superblock of the stacked `params`, each under a
+    checkpoint if `remat` and gradients are on; the stacked `cache`, if
+    given, is updated in place. Returns (x, aux_sum)."""
+    remat = remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_superblocks):
-        x, a = apply_superblock(
-            superblock(params, i), x, cfg, positions=positions,
-            cache=None if cache is None else superblock(cache, i),
-            memory=memory)
+    for i, sb in enumerate(unstack(params, cfg.n_superblocks)):
+        kw = dict(positions=positions, memory=memory,
+                  cache=None if cache is None else superblock(cache, i))
+        if remat:
+            x, a = checkpoint(apply_superblock, sb, x, cfg, **kw,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = apply_superblock(sb, x, cfg, **kw)
         aux = aux + a
     return x, aux

@@ -1,9 +1,10 @@
 """Top-level language models: embedding -> superblock stack -> head.
 
-The reference's functional API (`repro.models.lm`), for serving:
+The reference's functional API (`repro.models.lm`):
 
   init_params(gen, cfg, device=...)        -> params tree (dict of tensors)
   forward(params, tokens, cfg, ...)        -> (logits, cache, aux)
+  loss_fn(params, batch, cfg)              -> (scalar, metrics)
   init_cache(cfg, batch, max_len, device)  -> decode cache tree (stacked per
                                               superblock)
   prefill(params, tokens, cfg, max_len)    -> (logits_last, cache)
@@ -15,6 +16,12 @@ memory that the decoder's cross-attn layers consume (the mel/conv frontend
 is a stub: `frames` are precomputed frame embeddings). VLM
 (llama-3.2-vision): cross-attn layers consume precomputed patch embeddings
 passed as `memory`.
+
+The loss is next-token cross-entropy in fp32 over chunks of CE_CHUNK
+tokens, each chunk under a checkpoint, so that a chunk's (tokens, vocab)
+logits live only while it is computed and again in its backward. The
+reference reads the chunk from its sharding policy when one is set; the
+port has no such policy and reads CE_CHUNK.
 
 A cache is updated in place: `prefill` and `decode_step` return the cache
 they wrote. Its attention write heads ("pos") are host tensors, so that a
@@ -32,6 +39,8 @@ either copy.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
 from repro_torch.models.common import (apply_norm, init_norm, normal_init,
@@ -112,9 +121,10 @@ def _head(params, x, cfg):
 
 
 def forward(params, tokens, cfg, *, positions=None, cache=None, memory=None,
-            head="full"):
+            remat=True, head="full"):
     """tokens: (B, S) int. memory: (B, M, D) for cross-attn archs.
     head: "full" -> logits (B,S,V); "last" -> (B,1,V); "none" -> hidden.
+    remat: checkpoint each superblock when gradients are on.
     Returns (logits_or_hidden fp32, the cache given (updated) or None,
     aux scalar)."""
     B, S = tokens.shape
@@ -124,12 +134,73 @@ def forward(params, tokens, cfg, *, positions=None, cache=None, memory=None,
     if cfg.learned_pos_emb:
         x = x + params["pos_embed"][positions].to(cfg.cdtype)
     x, aux = blocks.apply_stack(params["stack"], x, cfg, positions=positions,
-                                cache=cache, memory=memory)
+                                cache=cache, memory=memory, remat=remat)
     if head == "none":
         return x, cache, aux
     if head == "last":
         x = x[:, -1:]
     return _head(params, x, cfg), cache, aux
+
+
+# ------------------------------------------------------------------ loss
+CE_CHUNK = 65536    # tokens per CE chunk: logits are never materialized for
+                    # more than this many rows (chunked cross-entropy)
+
+
+def _ce_chunk(carry, xb, tb, mb, w, cap):
+    """One chunk's summed NLL and mask added to carry (s, m)."""
+    lg = softcap((xb @ w).float(), cap)
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, tb[:, None])[:, 0]
+    s, m = carry
+    return s + torch.sum((lse - gold) * mb), m + torch.sum(mb)
+
+
+def _ce_chunked(params, x, targets, mask, cfg):
+    """x: (B,S,D) hidden; targets/mask: (B,S). Computes sum-NLL/sum-mask
+    a chunk of CE_CHUNK tokens at a time, each chunk checkpointed, so the
+    (T, V) logits never exist."""
+    B, S, D = x.shape
+    xn = apply_norm(params["final_norm"], x, cfg.norm,
+                    unit_offset=cfg.name.startswith("gemma"))
+    w = (params["embed"].T if cfg.tie_embeddings
+         else params["lm_head"]).to(cfg.cdtype)
+    T = B * S
+    xt = xn.reshape(T, D).to(cfg.cdtype)
+    tt = targets.reshape(T).long()
+    mt = mask.reshape(T).float()
+    C = min(CE_CHUNK, T)
+    pad = (-T) % C
+    if pad:
+        xt = F.pad(xt, (0, 0, 0, pad))
+        tt = F.pad(tt, (0, pad))
+        mt = F.pad(mt, (0, pad))
+    carry = (torch.zeros((), dtype=torch.float32, device=x.device),) * 2
+    for a in range(0, T + pad, C):
+        args = (carry, xt[a:a + C], tt[a:a + C], mt[a:a + C], w,
+                cfg.final_logit_softcap)
+        carry = (checkpoint(_ce_chunk, *args, use_reentrant=False,
+                            preserve_rng_state=False)
+                 if torch.is_grad_enabled() else _ce_chunk(*args))
+    tot, cnt = carry
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params, batch, cfg, *, remat=True):
+    """batch: {"tokens": (B,S), "loss_mask": (B,S) optional, "memory": opt,
+    "frames": for enc-dec archs}. Next-token CE in fp32, chunked so full
+    logits are never materialized, plus the MoE aux losses. Returns
+    (loss + aux, {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    memory = batch.get("memory")
+    if cfg.encoder is not None:
+        memory = encode(params, batch["frames"], cfg)
+    x, _, aux = forward(params, tokens, cfg, memory=memory, remat=remat,
+                        head="none")
+    mask = batch.get("loss_mask")
+    mask = (torch.ones_like(tokens) if mask is None else mask)[:, 1:]
+    loss = _ce_chunked(params, x[:, :-1], tokens[:, 1:], mask, cfg)
+    return loss + aux, {"ce": loss, "aux": aux}
 
 
 # ------------------------------------------------------------------ caches
@@ -173,7 +244,7 @@ def prefill(params, tokens, cfg, max_len, *, memory=None):
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_len, device=tokens.device)
     logits, cache, _ = forward(params, tokens, cfg, cache=cache,
-                               memory=memory, head="last")
+                               memory=memory, remat=False, head="last")
     return logits[:, -1], cache
 
 
@@ -182,6 +253,6 @@ def decode_step(params, token, cache, cfg, pos, *, memory=None):
     (B, V), cache)."""
     positions = torch.tensor([pos], dtype=torch.int32, device=token.device)
     logits, cache, _ = forward(params, token, cfg, positions=positions,
-                               cache=cache, memory=memory)
+                               cache=cache, memory=memory, remat=False)
     return logits[:, 0], cache
 

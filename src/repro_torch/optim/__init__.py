@@ -1,5 +1,9 @@
-"""The reference's hand-rolled AdamW over parameter trees."""
+"""The reference's optimizer pieces: the hand-rolled AdamW over parameter
+trees, the cosine LR schedule and int8 gradient compression with error
+feedback (`compress`)."""
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      global_norm)
+from repro_torch.optim.schedule import cosine_schedule
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
+           "global_norm"]

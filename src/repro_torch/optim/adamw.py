@@ -3,17 +3,25 @@
 of operations differs).
 
 A tree is a nested dict of tensors (`repro_torch.tree`); the moments
-mirror it in fp32 and `step` is an int32 scalar tensor. One update:
+mirror it in `moment_dtype` (fp32 unless asked: jamba-1.5-large keeps
+bf16 moments) and `step` is an int32 scalar tensor. One update:
 global-norm clip with scale = min(1, clip / (gnorm + 1e-9)), bias
 correction on m and v, decoupled weight decay added into the step u
-before the learning rate multiplies it.
+before the learning rate multiplies it. m, v and the parameters are
+computed in fp32 and rounded to their own dtypes after the step.
 
 The reference computes this in jnp outside any kernel, and so does the
-port: plain elementwise tensor ops on the parameters' device, one
-`torch._foreach_*` call a step for all leaves. Where the
-reference donates its buffers to XLA, `adamw_update` writes the new
-parameters and moments IN PLACE under `torch.no_grad()` and returns the
-same trees; the parameter tensors (`nn.Parameter`s) keep their identity.
+port: plain elementwise tensor ops on the parameters' device, the
+reference's operations in its order, each one `torch._foreach_*` call
+over a group of leaves. Where the reference donates its buffers to XLA,
+`adamw_update` writes the new parameters and moments IN PLACE under
+`torch.no_grad()` and returns the same trees; the parameter tensors keep
+their identity. The temporaries are bounded: a group holds at most CHUNK
+elements, a leaf larger than that cut in slices along its first axis (a
+stacked superblock leaf one or more superblocks at a time), so that a
+step needs a few hundred MB beyond the parameters, gradients and moments
+whatever the model's size; a small model's leaves make one group. Each
+element's arithmetic does not depend on the grouping.
 """
 from __future__ import annotations
 
@@ -35,9 +43,12 @@ class AdamWConfig:
     grad_clip: float = 1.0
 
 
-def adamw_init(params) -> Dict[str, Any]:
+CHUNK = 1 << 25         # elements of a leaf updated at once (128 MB in fp32)
+
+
+def adamw_init(params, moment_dtype=torch.float32) -> Dict[str, Any]:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
     step_device = leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=step_device)}
@@ -52,12 +63,60 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+def _slices(t):
+    """Views of `t` along its first axis, each of at most CHUNK elements
+    (at least one row); a scalar as one view of one element."""
+    t = t.reshape(1) if t.dim() == 0 else t
+    rows = max(1, CHUNK // max(1, t[0].numel())) if len(t) else 1
+    return [t[a:a + rows] for a in range(0, len(t), rows)]
+
+
+def _groups(*trees):
+    """The leaves of the trees (params, grads, m, v), cut by `_slices`,
+    gathered into groups of consecutive slices of at most CHUNK elements
+    in all (a larger slice alone): lists of (p, g, m, v) views."""
+    group, size = [], 0
+    for leaf in zip(*map(leaves, trees)):
+        for piece in zip(*map(_slices, leaf)):
+            n = piece[0].numel()
+            if group and size + n > CHUNK:
+                yield group
+                group, size = [], 0
+            group.append(piece)
+            size += n
+    if group:
+        yield group
+
+
+def _update(group, scale, bc1, bc2, lr, cfg: AdamWConfig):
+    """One group's step, in place: one `torch._foreach_*` call an
+    operation; m, v and p in fp32, then rounded to their own dtypes."""
+    p, g, m, v = (list(t) for t in zip(*group))
+    g = torch._foreach_mul([x.float() for x in g], scale)
+    m32, v32 = [x.float() for x in m], [x.float() for x in v]
+    torch._foreach_mul_(m32, cfg.b1)
+    torch._foreach_add_(m32, torch._foreach_mul(g, 1 - cfg.b1))
+    torch._foreach_mul_(v32, cfg.b2)
+    torch._foreach_add_(v32, torch._foreach_mul(torch._foreach_mul(g, g),
+                                                1 - cfg.b2))
+    den = torch._foreach_sqrt(torch._foreach_div(v32, bc2))
+    torch._foreach_add_(den, cfg.eps)
+    u = torch._foreach_div(torch._foreach_div(m32, bc1), den)
+    if cfg.weight_decay:
+        torch._foreach_add_(u, torch._foreach_mul([x.float() for x in p],
+                                                  cfg.weight_decay))
+    p32 = [x.float() for x in p]                 # p itself in fp32
+    torch._foreach_sub_(p32, torch._foreach_mul(u, lr))
+    for t, t32 in zip(m + v + p, m32 + v32 + p32):
+        if t32 is not t:
+            t.copy_(t32)
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     """Returns (params, state, {"grad_norm", "lr"}); params, m and v are
-    updated in place, `state["step"]` is a new tensor. Each elementwise
-    step is one `torch._foreach_*` call over all leaves, the reference's
-    operations in its order."""
+    updated in place, `state["step"]` is a new tensor. The update runs
+    group after group of leaves (`_groups`)."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -66,18 +125,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     bc1 = 1 - (one * cfg.b1) ** stepf
     bc2 = 1 - (one * cfg.b2) ** stepf
     lr = cfg.lr * lr_scale
-    p, m, v = leaves(params), leaves(state["m"]), leaves(state["v"])
-    g = torch._foreach_mul([x.float() for x in leaves(grads)], scale)
-    torch._foreach_mul_(m, cfg.b1)
-    torch._foreach_add_(m, torch._foreach_mul(g, 1 - cfg.b1))
-    torch._foreach_mul_(v, cfg.b2)
-    torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g),
-                                              1 - cfg.b2))
-    den = torch._foreach_sqrt(torch._foreach_div(v, bc2))
-    torch._foreach_add_(den, cfg.eps)
-    u = torch._foreach_div(torch._foreach_div(m, bc1), den)
-    if cfg.weight_decay:
-        torch._foreach_add_(u, torch._foreach_mul(p, cfg.weight_decay))
-    torch._foreach_sub_(p, torch._foreach_mul(u, lr))
+    for group in _groups(params, grads, state["m"], state["v"]):
+        _update(group, scale, bc1, bc2, lr, cfg)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -55,6 +55,8 @@ COPIES = (
     "configs/jamba_15_large.py", "configs/llama32_vision_90b.py",
     "configs/llama4_scout_17b.py", "configs/minicpm3_4b.py",
     "configs/qwen15_4b.py", "configs/qwen3_8b.py", "configs/whisper_tiny.py",
+    "data/__init__.py", "data/pipeline.py",
+    "runtime/__init__.py", "runtime/elastic.py",
 )
 
 # Comments in the reference that name project history ("the PR-n path")
