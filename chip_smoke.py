@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
 
-    python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py                # from the repository root
+    python3 chip_smoke.py --only layout  # the layout phase alone
 
 Phases, each printing one JSON line:
 
@@ -216,6 +217,37 @@ idle share, top kernels), and the step's model FLOPs and their share of
 qwen1.5-4b: 6 steps with an asynchronous checkpoint, then a restore that
 runs 2 more, under a temporary directory in build/; its loss must fall.
 
+Then the `layout` phase, the layout re-optimizer and its tooling
+(`launch.dryrun`, `launch.opanalysis`, `adapt/`, the policy-driven model
+paths, `optim.compress.compressed_psum`) at the train_lm phase's qwen3-8b
+cell (full width, LAYOUT_LAYERS layers, LAYOUT_B x LAYOUT_S tokens,
+weights from torch.Generator("cuda").manual_seed(0)): one train step
+counted op by op on the `meta` device and the same step counted on the
+card, whose FLOPs, bytes and kernel records must be equal, and the
+card's `torch.cuda.max_memory_allocated()` within LAYOUT_PEAK_RATIO of
+the meta run's peak live bytes (the dry run's model FLOPs printed beside
+`step_flops`); `LayoutReoptimizer.climb`
+(LAYOUT_CLIMB_ITERS iterations, kind "train") on meta, each iteration's
+hypothesis, predicted multipliers and terms, counted terms and verdict;
+the
+baseline, the climb's choice where it differs and the remat "dots" flip
+run for real from the same weights and batches (a warm-up step and
+LAYOUT_STEPS timed steps each: each step's loss within LAYOUT_LOSS_RTOL
+of the baseline's where the layouts differ only in knobs that keep the
+math, two flash_attention launches a layer a step (one with remat
+"none"), step ms and peak GB beside the roofline's t_bound_s, and
+whether the card orders them as the roofline does); MLA's absorbed
+decode at minicpm3-4b, full width and depth, MLA_B requests over a
+MLA_CACHE-token prefilled cache, with and without `mla_absorb` (logits
+within MLA_LOGIT_RTOL of the largest, the step's ms both ways beside the
+dry run's FLOP ratio); dbrx-132b's MoE block through the global,
+block-local and `shard_map` (emulated at 16 x 16) dispatches, card
+against CPU at the reduced width in fp32 with the CPU's routing imposed
+(within MOE_RTOL of the largest |y|), and each dispatch's ms at full
+width on 1 x MOE_TOKENS tokens; `compressed_psum` on a one-rank NCCL
+group made from a HashStore, equal to quantize-then-dequantize of its
+input.
+
 With `--profile`, one more card serve runs under `torch.profiler`: its
 line gives the device's busy time by kernel and its idle share of the
 wall time.
@@ -223,7 +255,7 @@ wall time.
 Then the kernels summary line (the encoder rows' launches sum the serve,
 learn, qos, control, gen and ablate phases', and the train, learn, qos,
 control and ablate phases' for the backward; the attention and scan rows
-the lm, train_lm and ops phases'), the `nvidia-smi` line, and
+the lm, train_lm, layout and ops phases'), the `nvidia-smi` line, and
 the result line `{"ok": true, "device": {...}}`. Any failure raises and
 exits non-zero (the learn, qos, control, gen and ablate phases check
 every case first and name each mismatch); without CUDA the script exits
@@ -255,7 +287,10 @@ from repro_torch.checkpoint import (Checkpointer, agent_state,  # noqa: E402
                                     install_agent_state,
                                     load_reference_checkpoint, params_finite,
                                     params_from_numpy)
+from repro_torch.adapt.knobs import BASELINE  # noqa: E402
+from repro_torch.adapt.search import LayoutReoptimizer  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.agent import (AgentConfig, AqoraAgent,  # noqa: E402
                                     _node_bucket)
@@ -265,9 +300,13 @@ from repro_torch.core.train_loop import evaluate, train_agent  # noqa: E402
 from repro_torch.data import SyntheticLMPipeline  # noqa: E402
 from repro_torch.experiments import main_experiment  # noqa: E402
 from repro_torch.gen.world import sample_world  # noqa: E402
-from repro_torch.kernels import build, ops, ref, tree_conv  # noqa: E402
+from repro_torch.kernels import build, ops, ref, tree_conv, work  # noqa: E402,E501
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import roofline as rl  # noqa: E402
+from repro_torch.launch import steps as steps_lib  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.launch.train import batch_on  # noqa: E402
@@ -275,8 +314,10 @@ from repro_torch.launch.train import make_train_step as train_step_fn  # noqa: E
 from repro_torch.launch.train import train as train_lm  # noqa: E402
 from repro_torch.learn import (AdaptiveCurriculum, PolicyStore,  # noqa: E402
                                TrajectoryHarvester, make_online_loop)
-from repro_torch.models import attention, blocks, lm  # noqa: E402
+from repro_torch.models import attention, blocks, lm, moe  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, global_norm  # noqa: E402,E501
+from repro_torch.optim.compress import (compressed_psum,  # noqa: E402
+                                        dequantize_int8, quantize_int8)
 from repro_torch.serve.deltas import DeltaBatch, apply_delta  # noqa: E402
 from repro_torch.serve.drift import DriftController, RefreshPolicy  # noqa: E402
 from repro_torch.serve.driver import (TenantTraffic,  # noqa: E402
@@ -294,6 +335,7 @@ from repro_torch.serve.recover import (FaultInjector,  # noqa: E402
                                        ScriptedFaults)
 from repro_torch.serve.scheduler import Arrival, LaneScheduler  # noqa: E402
 from repro_torch.serve.service import QueryService  # noqa: E402
+from repro_torch.sharding import act as act_sharding  # noqa: E402
 from repro_torch.sql import datagen, workloads  # noqa: E402
 from repro_torch.sql.catalog import analyze  # noqa: E402
 from repro_torch.sql.cbo import Estimator  # noqa: E402
@@ -303,9 +345,9 @@ from repro_torch.tree import flatten, tree_map, unflatten  # noqa: E402
 
 CKPT = ROOT / "results" / "aqora_ckpt" / "step_00000018"
 TOL = 1e-4                 # the reference's own fused-vs-jnp tolerance
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS = 989e12        # H100 SXM bf16 tensor cores, dense
+HBM_BYTES_PER_S = work.HBM_BYTES_PER_S   # H100 SXM data sheet
+FP32_FLOPS = work.FP32_FLOPS             # H100 SXM fp32, no tensor cores
+BF16_FLOPS = work.BF16_FLOPS             # H100 SXM bf16 tensor cores, dense
 SFU_PER_CLOCK = 16         # exps per clock on each SM (special-function units)
 N_LANES = 8
 # the backward kernel's weight grads sum over every node and tree in
@@ -471,18 +513,10 @@ def kernel_timing(feat, left, right, mask, params, *, launches: int):
     args = (*ptrs, out.data_ptr(), B, N, F, H,
             torch.cuda.current_stream().cuda_stream)
     ms = cuda_ms(lambda: fn(*args), launches=launches)
-    weight_bytes = sum(t.numel() * 4 for p in params.values()
-                       for t in p.values())
-    n_bytes = (feat.numel() + left.numel() + right.numel() + mask.numel()
-               + B * H) * 4 + weight_bytes
     real_nodes = float(mask.sum())
-    flops = 2 * 3 * real_nodes * (F + 2 * H) * H   # the three layers' FMAs
-    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    flop_ms = flops / FP32_FLOPS * 1e3
-    return {"shape": [B, N, F, H], "real_nodes": real_nodes,
-            "bytes": n_bytes, "flops": flops, "ms": ms,
-            "bound_ms": max(byte_ms, flop_ms),
-            "bound_by": "bytes" if byte_ms >= flop_ms else "operations"}
+    n_bytes, flops = work.tree_cnn_fused_work(B, N, F, H, real_nodes)
+    return {"shape": [B, N, F, H], "real_nodes": real_nodes, "ms": ms,
+            **work.bound(n_bytes, flops, FP32_FLOPS)}
 
 
 # ------------------------------------------------------------------ phases
@@ -688,13 +722,11 @@ def backward_timing(feat, left, right, mask, params):
     plain = cuda_ms(lambda: ref.tree_cnn_fused_bwd_ref(
         feat, left, right, mask, params, g), launches=20)
     real_nodes = float(mask.sum())
-    flops = 2 * real_nodes * H * (6 * Fd + 18 * H)
-    n_bytes = 4 * (feat.numel() + left.numel() + right.numel() + mask.numel()
-                   + g.numel() + 2 * E)
+    n_bytes, flops = work.tree_cnn_fused_bwd_work(B, N, Fd, H, real_nodes)
     return {"shape": [B, N, Fd, H], "real_nodes": real_nodes, "ms": kernel_ms,
             **{k: occupancy[k] for k in ("cluster", "blocks_per_sm",
                                          "max_active_clusters")},
-            "plain_ms": plain, **bound(n_bytes, flops, FP32_FLOPS),
+            "plain_ms": plain, **work.bound(n_bytes, flops, FP32_FLOPS),
             # a later launch (phase_late_profiles) on raw pointers: `keep`
             # holds their tensors, whose memory, once freed,
             # torch.cuda.empty_cache could unmap before it
@@ -2953,6 +2985,443 @@ def phase_train_lm():
     return total
 
 
+# ------------------------------------------------------------ layout phase
+# the dry run against the card at the train_lm phase's qwen3-8b cell:
+# full width, LAYOUT_LAYERS of 36 layers, LAYOUT_B x LAYOUT_S tokens
+LAYOUT_ARCH, LAYOUT_LAYERS, LAYOUT_B, LAYOUT_S = "qwen3-8b", 12, 4, 1024
+LAYOUT_CLIMB_ITERS = 4
+# the card's max_memory_allocated over the dry run's peak live bytes: the
+# allocator holds every live tensor (at least 1, less a little for
+# tensors the count sees and the allocator does not, such as host
+# scalars) plus its 512-byte rounding, cuBLAS's workspaces and blocks
+# freed but not yet reused (1.0011 in the first card run, PERF.md)
+LAYOUT_PEAK_RATIO = (0.99, 1.02)
+LAYOUT_STEPS = 2           # timed steps a layout, after one warm-up step
+# the layouts run for real differ only in knobs that leave the step's math
+# as it is (remat, ce_chunk, attn_remat; the sharding-only attn_mode and
+# kv_seq_shard are no-ops on one card): each step's loss within this of
+# the baseline's
+LAYOUT_LOSS_RTOL = 1e-2
+MATH_KNOBS = ("grad_compress", "mla_absorb", "attn_scores_bf16",
+              "moe_dispatch")
+# MLA's absorbed decode at minicpm3-4b, full width and depth: B requests
+# over a cache of MLA_CACHE tokens; logits within MLA_LOGIT_RTOL of the
+# largest |logit| of the expanded path (the lm phase's limit)
+MLA_ARCH, MLA_B, MLA_CACHE, MLA_LOGIT_RTOL = "minicpm3-4b", 8, 2048, 3e-2
+MLA_REPS = 5
+# dbrx-132b's MoE block: full width at 1 x MOE_TOKENS; the gate at the
+# reduced width (fp32 compute), card against CPU with the CPU's routing
+MOE_ARCH, MOE_TOKENS, MOE_MESH = "dbrx-132b", 2048, (16, 16)
+MOE_SMALL_TOKENS, MOE_RTOL = 256, 1e-4
+MOE_MODES = ("global", "local", "shard_map")
+
+
+def layout_cfg():
+    return dataclasses.replace(registry.get_config(LAYOUT_ARCH),
+                               n_layers=LAYOUT_LAYERS)
+
+
+def layout_shape():
+    return ShapeConfig("train_lm", LAYOUT_S, LAYOUT_B, "train")
+
+
+def layout_state(cfg):
+    """Parameters from torch.Generator("cuda").manual_seed(0), fresh AdamW
+    state, and the pipeline's first LAYOUT_STEPS + 1 batches (tokens only:
+    the dry run's batch), all on the card."""
+    torch.cuda.empty_cache()
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = lm.init_params(gen, cfg, device="cuda")
+    opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
+    pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=LAYOUT_S,
+                               global_batch=LAYOUT_B, seed=0,
+                               n_logical_shards=LAYOUT_B,
+                               shard_range=(0, LAYOUT_B))
+    batches = [{"tokens": torch.as_tensor(pipe.batch_at(i)["tokens"],
+                                          device="cuda")}
+               for i in range(LAYOUT_STEPS + 1)]
+    return params, opt, batches
+
+
+def op_classes(counter):
+    """A count's ops, FLOPs and bytes by class, each as its share of the
+    total: AdamW's `_foreach` passes, matmuls, casts and copies, the
+    other elementwise ops and reductions, and the kernels' records."""
+    out = {"kernels": {"ops": len(counter.kernels),
+                       "flops": sum(k["flops"] for k in counter.kernels),
+                       "bytes": sum(k["bytes"] for k in counter.kernels)}}
+    for name, (n, flops, n_bytes) in counter.by_op.items():
+        c = ("adamw _foreach" if name.startswith("_foreach") else
+             "matmul" if name in ("mm", "addmm", "bmm", "baddbmm") else
+             "casts and copies" if name in ("_to_copy", "copy_", "clone")
+             else "other elementwise and reductions")
+        r = out.setdefault(c, {"ops": 0, "flops": 0, "bytes": 0})
+        r["ops"] += n
+        r["flops"] += flops
+        r["bytes"] += n_bytes
+    for r in out.values():
+        r["flops_share"] = r["flops"] / counter.flops
+        r["bytes_share"] = r["bytes"] / counter.bytes
+    return out
+
+
+def layout_dry_vs_card(cfg, bad):
+    """One train step counted on meta and the same step counted on the
+    card: FLOPs, bytes and the kernels' records must be equal. Returns the
+    row and the card's flash_attention launches."""
+    shape = layout_shape()
+    t0 = time.perf_counter()
+    meta, meta_mem, meta_s = dryrun.count_step(cfg, shape, BASELINE)
+    params, opt, batches = layout_state(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    card, card_mem, card_s = dryrun.count_step(
+        cfg, shape, BASELINE, inputs=(params, opt, batches[0]))
+    torch.cuda.synchronize()
+    launched = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    model_flops = rl.model_flops(cfg, shape, dryrun._useful_params(cfg))
+    same = {"flops": meta.flops == card.flops,
+            "bytes": meta.bytes == card.bytes,
+            "kernels": meta.kernel_totals() == card.kernel_totals()}
+    row = {"arch": LAYOUT_ARCH, "layers": LAYOUT_LAYERS,
+           "batch": LAYOUT_B, "seq": LAYOUT_S, "layout": BASELINE.name(),
+           "meta": {"flops": meta.flops, "bytes": meta.bytes,
+                    "ops": meta.ops, "kernels": meta.kernel_totals(),
+                    "peak_live_bytes": meta.peak_live_bytes,
+                    "argument_bytes": meta_mem["argument"],
+                    "by_class": op_classes(meta), "seconds": meta_s},
+           "card": {"flops": card.flops, "bytes": card.bytes,
+                    "ops": card.ops, "kernels": card.kernel_totals(),
+                    "peak_live_bytes": card.peak_live_bytes,
+                    "max_memory_allocated": peak, "seconds": card_s},
+           "equal": same,
+           "peak_ratio_card_over_meta": peak / meta.peak_live_bytes,
+           "model_flops": model_flops,
+           "step_flops": step_flops(cfg, LAYOUT_B, LAYOUT_S)[0],
+           "model_over_step_flops": model_flops
+           / step_flops(cfg, LAYOUT_B, LAYOUT_S)[0],
+           "launches": launched, "want_launches": 2 * cfg.n_layers,
+           "seconds": time.perf_counter() - t0}
+    if not all(same.values()):
+        bad.append(f"dry run and card count differ: {same}")
+    lo, hi = LAYOUT_PEAK_RATIO
+    if not lo <= row["peak_ratio_card_over_meta"] <= hi:
+        bad.append(f"card peak over the dry run's: "
+                   f"{row['peak_ratio_card_over_meta']} outside {lo}-{hi}")
+    if launched != row["want_launches"]:
+        bad.append(f"the counted card step launched {launched}, want "
+                   f"{row['want_launches']}")
+    return row, launched
+
+
+class CutReoptimizer(LayoutReoptimizer):
+    """The re-optimizer on the cut train_lm cell: each evaluation is the
+    port's dry run at `cfg` and `shape`."""
+
+    def __init__(self, cfg, shape, out_dir):
+        super().__init__(cfg.name, shape.name, out_dir=out_dir)
+        self.cfg, self.shape_cfg = cfg, shape
+
+    def evaluate(self, layout):
+        return dryrun.run_cell(self.arch, self.shape, verbose=False,
+                               layout=layout, cfg=self.cfg,
+                               shape=self.shape_cfg)
+
+
+def layout_climb(cfg):
+    t0 = time.perf_counter()
+    opt = CutReoptimizer(cfg, layout_shape(),
+                         ROOT / "build" / "chip_smoke_perf")
+    best, logs = opt.climb(max_iters=LAYOUT_CLIMB_ITERS, kind="train")
+    terms = ("compute", "memory", "collective")
+    rows = [{"iteration": l.iteration, "hypothesis": l.hypothesis,
+             "layout": l.layout, "predicted_multipliers": l.predicted,
+             "predicted": {k: l.before[k] * l.predicted[k] for k in terms}
+             if l.predicted else None,
+             "before": l.before, "counted": l.after, "verdict": l.verdict}
+            for l in logs]
+    return best, {"chosen": best.name(), "iterations": rows,
+                  "seconds": time.perf_counter() - t0}
+
+
+def math_same(a, b) -> bool:
+    return all(getattr(a, k) == getattr(b, k) for k in MATH_KNOBS)
+
+
+def layout_run(cfg, layout):
+    """A warm-up step and LAYOUT_STEPS timed steps of `layout` on the card
+    from the seeded weights and the same batches; the step's roofline from
+    the dry run."""
+    params, opt, batches = layout_state(cfg)
+    step = steps_lib.step_fn(cfg, layout_shape())
+    if layout.grad_compress:
+        step = steps_lib.make_train_step(cfg, grad_compress=True)
+    pol = dryrun.layout_policy(make_production_mesh(), layout)
+    losses, times, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with act_sharding.policy(pol):
+        for i, batch in enumerate(batches):
+            fa.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            torch.cuda.synchronize()
+            if i:
+                times.append(time.perf_counter() - t0)
+            launches.append(fa.launches)
+            losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    rec = dryrun.run_cell(cfg.name, "train_lm", verbose=False, layout=layout,
+                          cfg=cfg, shape=layout_shape())
+    mode = "none" if layout.remat == "none" else "remat"
+    want = (1 if mode == "none" else 2) * cfg.n_layers
+    return {"layout": layout.name(), "losses": losses, "step_s": times,
+            "step_ms_median": float(np.median(times)) * 1e3,
+            "peak_gb": peak / 1e9, "launches_per_step": launches,
+            "want_launches_per_step": want,
+            "t_bound_s": rec["roofline"]["t_bound_s"],
+            "bottleneck": rec["roofline"]["bottleneck"],
+            "counted_peak_gb": rec["memory"]["live_bytes_per_device"] / 1e9}
+
+
+def layout_runs(cfg, best, bad):
+    """The baseline, the climb's choice (where it differs) and the remat
+    "dots" flip, run for real."""
+    layouts = [BASELINE]
+    if best.name() != BASELINE.name():
+        layouts.append(best)
+    dots = dataclasses.replace(BASELINE, remat="dots")
+    if all(dots.name() != l.name() for l in layouts):
+        layouts.append(dots)
+    runs = [layout_run(cfg, l) for l in layouts]
+    base = runs[0]
+    for lay, run in zip(layouts, runs):
+        run["loss_gate"] = math_same(lay, BASELINE)
+        if run["loss_gate"]:
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(run["losses"], base["losses"]))
+            run["loss_rel_to_baseline"] = rel
+            if rel > LAYOUT_LOSS_RTOL or not all(np.isfinite(run["losses"])):
+                bad.append(f"layout {run['layout']}: losses {run['losses']} "
+                           f"against the baseline's {base['losses']}")
+        if any(n != run["want_launches_per_step"]
+               for n in run["launches_per_step"]):
+            bad.append(f"layout {run['layout']}: launched "
+                       f"{run['launches_per_step']} a step")
+    by_card = sorted(range(len(runs)), key=lambda i: runs[i]["step_ms_median"])
+    by_roof = sorted(range(len(runs)), key=lambda i: runs[i]["t_bound_s"])
+    return runs, {"card_order": [runs[i]["layout"] for i in by_card],
+                  "roofline_order": [runs[i]["layout"] for i in by_roof],
+                  "same_order": by_card == by_roof}
+
+
+def reset_heads(cache, pos):
+    for entry in cache.values():
+        if "pos" in entry:
+            entry["pos"].fill_(pos)
+
+
+def layout_mla(bad):
+    """minicpm3-4b at full width and depth: a decode step of MLA_B
+    requests over a MLA_CACHE-token cache (prefilled from random prompts),
+    with and without mla_absorb, on the same cache."""
+    cfg = registry.get_config(MLA_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator("cuda").manual_seed(0)
+    serving = lm.serving_params(lm.init_params(gen, cfg, device="cuda"), cfg)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    P = MLA_CACHE - 1
+    prompts = torch.as_tensor(rng.integers(2, cfg.vocab_size, (MLA_B, P)),
+                              dtype=torch.int32, device="cuda")
+    token = torch.as_tensor(rng.integers(2, cfg.vocab_size, (MLA_B, 1)),
+                            dtype=torch.int32, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        _, cache = lm.prefill(serving, prompts, cfg, MLA_CACHE)
+        for name, absorb in (("expanded", False), ("absorbed", True)):
+            pol = act_sharding.ActivationPolicy(mla_absorb=absorb)
+            with act_sharding.policy(pol):
+                def one():
+                    reset_heads(cache, P)
+                    return lm.decode_step(serving, token, cache, cfg, P)[0]
+                logits = one().float()
+                ms_step = cuda_ms(one, launches=1, reps=MLA_REPS, warmup=2)
+            out[name] = (logits, ms_step)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del serving, cache
+    torch.cuda.empty_cache()
+    (want, ms_x), (got, ms_a) = out["expanded"], out["absorbed"]
+    top = float(want.abs().max())
+    err = float((got - want).abs().max())
+    shape = ShapeConfig("decode_2k", MLA_CACHE, MLA_B, "decode")
+    recs = {name: dryrun.run_cell(
+        MLA_ARCH, shape.name, verbose=False, cfg=cfg, shape=shape,
+        layout=dataclasses.replace(BASELINE, mla_absorb=absorb))
+        for name, absorb in (("expanded", False), ("absorbed", True))}
+    flops = {k: r["hlo_analysis"]["flops"] for k, r in recs.items()}
+    row = {"arch": MLA_ARCH, "layers": cfg.n_layers, "batch": MLA_B,
+           "cache": MLA_CACHE, "params": cfg.param_count(),
+           "max_abs_err": err, "largest_logit": top,
+           "rel_err": err / top, "rtol": MLA_LOGIT_RTOL,
+           "finite": bool(torch.isfinite(got).all()),
+           "argmax_equal_share": float(
+               (got.argmax(-1) == want.argmax(-1)).float().mean()),
+           "decode_ms": {"expanded": ms_x, "absorbed": ms_a},
+           "card_speedup": ms_x / ms_a,
+           "dry_run_flops": flops,
+           "dry_run_flop_ratio": flops["expanded"] / flops["absorbed"],
+           "dry_run_t_bound_ms": {k: r["roofline"]["t_bound_s"] * 1e3
+                                  for k, r in recs.items()},
+           "peak_gb": peak, "seconds": time.perf_counter() - t0}
+    if not row["finite"] or err > MLA_LOGIT_RTOL * top:
+        bad.append(f"MLA absorbed decode: {row}")
+    return row
+
+
+def moe_case(cfg, T, device, gen):
+    """One MoE layer's parameters and a (1, T, D) input on `device`,
+    from `gen` (bf16 at full width: the serving copy)."""
+    p = moe.init_moe(gen, cfg, device=device)
+    p = {k: v.to(cfg.cdtype) if k.startswith("moe_w") else v
+         for k, v in p.items()}
+    x = torch.randn((1, T, cfg.d_model), generator=gen, device=device)
+    return p, x.to(cfg.cdtype)
+
+
+def moe_policy(mode):
+    dp, tp = MOE_MESH
+    return act_sharding.ActivationPolicy(
+        dp_size=dp, tp_size=tp, moe_dispatch=mode,
+        mesh=make_production_mesh())
+
+
+def layout_moe(bad):
+    """dbrx-132b's MoE block through the global, block-local and
+    shard_map dispatches: card against CPU at the reduced width with the
+    CPU's routing imposed, then each dispatch's time at full width."""
+    t0 = time.perf_counter()
+    full = registry.get_config(MOE_ARCH)
+    small = dataclasses.replace(
+        registry.reduced(full), compute_dtype="float32",
+        moe=dataclasses.replace(registry.reduced(full).moe,
+                                n_experts=full.moe.n_experts,
+                                top_k=full.moe.top_k))
+    gen = torch.Generator().manual_seed(0)
+    p_cpu, x_cpu = moe_case(small, MOE_SMALL_TOKENS, "cpu", gen)
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    rows = {}
+    for mode in MOE_MODES:
+        with act_sharding.policy(moe_policy(mode)), torch.inference_mode():
+            routed = []
+            real_route = moe.route
+
+            def keep(probs, K):
+                routed.append(real_route(probs, K))
+                return routed[-1]
+            moe.route = keep
+            try:
+                want, _ = moe.apply_moe(p_cpu, x_cpu, small)
+            finally:
+                moe.route = real_route
+            gate, eidx = routed[0]
+            moe.route = lambda probs, K: (gate.to(probs.device),
+                                          eidx.to(probs.device))
+            try:
+                got, _ = moe.apply_moe(p_gpu, x_cpu.cuda(), small)
+            finally:
+                moe.route = real_route
+        err = float((got.cpu() - want).abs().max())
+        top = float(want.abs().max())
+        rows[mode] = {"max_abs_err": err, "largest": top,
+                      "rel_err": err / top, "rtol": MOE_RTOL}
+        if not err <= MOE_RTOL * top:
+            bad.append(f"MoE {mode} dispatch: card and CPU differ: "
+                       f"{rows[mode]}")
+    torch.cuda.empty_cache()
+    gen = torch.Generator("cuda").manual_seed(0)
+    p, x = moe_case(full, MOE_TOKENS, "cuda", gen)
+    outs = {}
+    with torch.inference_mode():
+        for mode in MOE_MODES:
+            with act_sharding.policy(moe_policy(mode)):
+                outs[mode] = moe.apply_moe(p, x, full)[0].float()
+                rows[mode]["ms"] = cuda_ms(
+                    lambda: moe.apply_moe(p, x, full), launches=1, reps=5,
+                    warmup=2)
+                rows[mode]["finite"] = bool(torch.isfinite(outs[mode]).all())
+    for mode in MOE_MODES:
+        rows[mode]["rel_norm_to_global"] = float(
+            (outs[mode] - outs["global"]).norm() / outs["global"].norm())
+        if not rows[mode]["finite"]:
+            bad.append(f"MoE {mode} dispatch at full width is not finite")
+    expert_gb = sum(p[k].numel() * p[k].element_size()
+                    for k in ("moe_wg", "moe_wu", "moe_wd")) / 1e9
+    del p, x, outs
+    torch.cuda.empty_cache()
+    return {"arch": MOE_ARCH, "experts": full.moe.n_experts,
+            "top_k": full.moe.top_k, "d_model": full.d_model,
+            "d_ff": full.moe_d_ff, "tokens": MOE_TOKENS,
+            "mesh": list(MOE_MESH), "expert_gb": expert_gb,
+            "gate_at": {"d_model": small.d_model, "d_ff": small.moe_d_ff,
+                        "tokens": MOE_SMALL_TOKENS, "dtype": "float32"},
+            "dispatch": rows, "seconds": time.perf_counter() - t0}
+
+
+def layout_psum(bad):
+    """compressed_psum on a one-rank NCCL group made from a HashStore:
+    the sum of one rank is its own quantize-then-dequantize."""
+    import torch.distributed as dist
+    x = torch.randn((1024, 1024), generator=torch.Generator(
+        "cuda").manual_seed(3), device="cuda") * 3
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        got = compressed_psum(x)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    q, s = quantize_int8(x)
+    want = dequantize_int8(q, s)
+    row = {"shape": list(x.shape), "equal": bool(torch.equal(got, want)),
+           "max_abs_err": float((got - want).abs().max())}
+    if not row["equal"]:
+        bad.append(f"compressed_psum: {row}")
+    return row
+
+
+def phase_layout():
+    """The layout re-optimizer and its tooling on the card (see the
+    module docstring). Every check runs before any fails. Returns the
+    phase's flash_attention launches."""
+    bad = []
+    t0 = time.perf_counter()
+    cfg = layout_cfg()
+    dry, launched = layout_dry_vs_card(cfg, bad)
+    best, climb = layout_climb(cfg)
+    runs, order = layout_runs(cfg, best, bad)
+    launched += sum(sum(r["launches_per_step"]) for r in runs)
+    mla = layout_mla(bad)
+    moe_row = layout_moe(bad)
+    psum = layout_psum(bad)
+    emit({"phase": "layout", "dry_run_vs_card": dry, "climb": climb,
+          "runs": runs, "order": order, "mla_absorb": mla, "moe": moe_row,
+          "compressed_psum": psum, "launches": {"flash_attention": launched},
+          "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi(),
+          "ok": not bad, "mismatches": bad})
+    if bad:
+        raise AssertionError(f"layout phase: {bad}")
+    return {"flash_attention": launched}
+
+
 # -------------------------------------------------------------- ops phase
 # (case, B, Sq, Sk, H, K, hd, causal, window, softcap, dtype, atol, rtol,
 #  the one SDPA call that computes the same function: "is_causal" (top-left
@@ -3020,31 +3489,6 @@ def attention_plain(qf, kf, vf, **kw):
         out[a:b] = ref.flash_attention_ref(qf[a:b], kf[a // G:b // G],
                                            vf[a // G:b // G], **kw)
     return out
-
-
-def allowed_pairs(Sq, Sk, causal, window) -> int:
-    """(query, key) pairs the masks allow in one head."""
-    qpos = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
-    hi = np.minimum(Sk - 1, qpos) if causal else np.full(Sq, Sk - 1)
-    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(Sq)
-    return int(np.maximum(0, hi - lo + 1).sum())
-
-
-def needed_keys(Sq, Sk, causal, window) -> int:
-    """Keys of one k/v head that some query row may attend to: the bytes
-    of k and v the call must read."""
-    off = Sk - Sq
-    hi = min(Sk - 1, Sq - 1 + off) if causal else Sk - 1
-    lo = max(0, off - window + 1) if window > 0 else 0
-    return max(0, hi - lo + 1)
-
-
-def bound(n_bytes, flops, peak):
-    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    flop_ms = flops / peak * 1e3
-    return {"bytes": n_bytes, "flops": flops,
-            "bound_ms": max(byte_ms, flop_ms),
-            "bound_by": "bytes" if byte_ms >= flop_ms else "operations"}
 
 
 def counts():
@@ -3183,11 +3627,10 @@ def attention_row(a):
     plain = cuda_ms(lambda: attention_plain(qf, kf, vf, **a["kw"]),
                     launches=1, reps=3, warmup=1)
     Sk = kf.shape[1]
-    pairs = allowed_pairs(Sq, Sk, a["kw"]["causal"], a["kw"]["window"])
-    keys = needed_keys(Sq, Sk, a["kw"]["causal"], a["kw"]["window"])
-    n_bytes = (2 * qf.numel() + 2 * kf.shape[0] * keys * hd) \
-        * qf.element_size()
-    flops = 4 * pairs * hd * B * H
+    pairs = work.allowed_pairs(Sq, Sk, a["kw"]["causal"], a["kw"]["window"])
+    n_bytes, flops = work.attention_work(
+        B * H, kf.shape[0], Sq, Sk, hd, causal=a["kw"]["causal"],
+        window=a["kw"]["window"], itemsize=qf.element_size())
     peak = BF16_FLOPS if a["dtype"] == torch.bfloat16 else FP32_FLOPS
     row = {"case": a["case"], "entry": "mha_flash",
            "kernel": "flash_attention",
@@ -3195,7 +3638,7 @@ def attention_row(a):
            "q": list(a["args"][0].shape), "kv": list(a["args"][1].shape),
            **a["kw"], "dtype": str(a["dtype"]),
            "allowed_pairs_per_head": pairs, "ms": ms_kernel,
-           "plain_ms": plain, **bound(n_bytes, flops, peak),
+           "plain_ms": plain, **work.bound(n_bytes, flops, peak),
            "sfu_ms": sfu_ms(pairs * B * H),
            "tflop_per_s": flops / ms_kernel / 1e9,
            "tb_per_s": n_bytes / ms_kernel / 1e9,
@@ -3286,18 +3729,14 @@ def scan_row(case, scan):
                     reps=3, warmup=1)
     B, S, di = x.shape
     N = A.shape[1]
-    # per (b, t, d, n): dt*A, exp, a*h + b (2), dx*B, y += C*h (2); per
-    # (b, t, d): dt*x and the skip term's FMA (2)
-    flops = 7 * B * S * di * N + 3 * B * S * di
-    n_bytes = 4 * (3 * x.numel() + A.numel() + Bs.numel() + Cs.numel()
-                   + D.numel() + h_last.numel())
+    n_bytes, flops = work.scan_work(B, S, di, N)
     return {"case": case, "entry": "selective_scan_fused",
             "kernel": "mamba_scan", "x": list(x.shape), "A": list(A.shape),
             "dtype": "torch.float32", "ms": ms_kernel, "device_ms": dev_ms,
             "op_ms": op_ms,
             "device_kernels_per_op": len(kernels),
             "device_kernel_names": sorted(set(k[:60] for k in kernels)),
-            "plain_ms": plain, **bound(n_bytes, flops, FP32_FLOPS),
+            "plain_ms": plain, **work.bound(n_bytes, flops, FP32_FLOPS),
             "sfu_ms": sfu_ms(B * S * di * N),
             "tb_per_s": n_bytes / ms_kernel / 1e9, "library_ms": None,
             "library_note": "none"}
@@ -3323,13 +3762,11 @@ def conv_row(case, tree, p, out):
     dev_ms = device_ms(lambda: fn(*args))
     plain = cuda_ms(lambda: ref.tree_conv_batch_ref(*tree, *weights),
                     launches=20)
-    n_bytes = 4 * (feat.numel() + left.numel() + right.numel() +
-                   mask.numel() + sum(w.numel() for w in weights) + B * N * H)
-    flops = 2 * 3 * float(mask.sum()) * Fd * H      # FMAs of the real nodes
+    n_bytes, flops = work.tree_conv_work(B, N, Fd, H, float(mask.sum()))
     return {"case": case, "entry": "tree_conv_batch", "kernel": "tree_conv",
             "shape": [B, N, Fd, H], "dtype": "torch.float32",
             "ms": ms_kernel, "device_ms": dev_ms, "plain_ms": plain,
-            **bound(n_bytes, flops, FP32_FLOPS), "sfu_ms": 0.0,
+            **work.bound(n_bytes, flops, FP32_FLOPS), "sfu_ms": 0.0,
             "library_ms": None, "library_note": "none"}
 
 
@@ -3337,6 +3774,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one serve on the card")
+    ap.add_argument("--only", choices=["layout"], default=None,
+                    help="run the device, build and this phase alone, "
+                         "with no summary or result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3345,6 +3785,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     phase_build()
+    if args.only == "layout":
+        phase_layout()
+        return 0
     db, wl, meta = deployment()
     tree = load_reference_checkpoint(CKPT)
     worst, timing, bwd_worst, bwd_timing = phase_kernels(db, wl, meta, tree)
@@ -3362,6 +3805,7 @@ def main() -> int:
     phase_late_profiles(bwd_timing, trained, trajs, ablate_profiled)
     lm_launches = phase_lm()
     train_lm_launches = phase_train_lm()
+    layout_launches = phase_layout()
     summary = [{
         "name": "tree_cnn_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tree_cnn_fused.cu",
@@ -3399,7 +3843,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
             "launches": ops_launches[name] + lm_launches.get(name, 0)
-            + train_lm_launches.get(name, 0),
+            + train_lm_launches.get(name, 0)
+            + layout_launches.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}, "case": case})

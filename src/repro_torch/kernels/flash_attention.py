@@ -24,16 +24,22 @@ Key tiles with no allowed key are skipped, so a sliding window costs
 O(Sq·window) (csrc/flash_attention.cu says more).
 
 `flash_attention` runs its plain version, `ref.flash_attention_ref`, for
-CPU tensors only; for CUDA tensors it launches a kernel or raises.
-`launches` counts launches.
+CPU tensors only; for CUDA tensors it launches a kernel or raises; for
+`meta` tensors (a dry run) it returns the kernel's fake, an empty output
+of its shape. Any other device raises. `launches` counts launches. Under
+an active op counter (`launch.opanalysis`) each call records the
+kernel's FLOPs and bytes (`work.attention_work`), whatever the device,
+and the counter does not count the wrapper's own ops: a count on the CPU
+or on `meta` is the card's.
 
 Gradients: the kernel has no backward, nor has the reference's Pallas
-kernel. With gradients on, a CUDA call goes through `FlashAttention`, a
-`torch.autograd.Function` whose forward launches the kernel and keeps q,
-k and v, and whose backward runs the plain version again on them under
-autograd and returns its gradients (the shape of the reference's
-`tree_cnn_fused` VJP: the kernel forward, a recomputation backward). On
-the CPU the plain version is differentiable as it is.
+kernel. With gradients on, a call goes through `FlashAttention`, a
+`torch.autograd.Function` whose forward launches the kernel (its plain
+version on the CPU) and keeps q, k and v, and whose backward runs the
+plain version again on them under autograd and returns its gradients
+(the shape of the reference's `tree_cnn_fused` VJP: the kernel forward, a
+recomputation backward). On the CPU that gives autograd's own gradients
+of the plain version.
 """
 from __future__ import annotations
 
@@ -41,7 +47,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
+from repro_torch.launch import opanalysis
 
 HEAD_DIMS = (32, 64, 128)     # the kernel's head widths
 DTYPES = (torch.float32, torch.bfloat16)
@@ -123,11 +130,24 @@ def _launch(q, k, v, out, *, causal, window, softcap, scale) -> int:
 
 
 def _forward(q, k, v, *, causal, window, softcap, scale):
-    """One counted kernel launch on checked CUDA tensors."""
+    """The kernel's function on checked tensors: one counted launch on
+    CUDA, the plain version on the CPU, the kernel's fake on `meta`;
+    recorded for an active op counter."""
     global launches
-    out = torch.empty_like(q)
-    err = _launch(q, k, v, out, causal=causal, window=window,
-                  softcap=softcap, scale=scale)
+    BH, Sq, hd = q.shape
+    cost = work.attention_work(BH, k.shape[0], Sq, k.shape[1], hd,
+                               causal=causal, window=window,
+                               itemsize=q.element_size())
+    with opanalysis.kernel("flash_attention", cost[1], cost[0]):
+        if q.device.type == "cpu":
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, softcap=softcap,
+                                           scale=scale)
+        out = torch.empty_like(q)
+        if q.device.type == "meta":
+            return out
+        err = _launch(q, k, v, out, causal=causal, window=window,
+                      softcap=softcap, scale=scale)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1
@@ -166,14 +186,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     hd^-0.5. Returns (BH, Sq, hd) in q's dtype; with gradients on and an
     input that needs one, differentiable (`FlashAttention`)."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
-    kernel_path(q.shape[0], k.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                q.dtype)
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if q.device.type != "cpu":
+        kernel_path(q.shape[0], k.shape[0], q.shape[1], k.shape[1],
+                    q.shape[2], q.dtype)
+    if q.device.type == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window, softcap, scale)

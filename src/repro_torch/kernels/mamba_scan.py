@@ -23,17 +23,20 @@ rounds it; x, dt, B and C arrive in shared memory by
 asynchronous copies, chunks ahead (csrc/mamba_scan.cu says more).
 
 `mamba_scan` runs its plain version, `ref.mamba_scan_ref`, for CPU
-tensors only; for CUDA tensors it launches the kernel or raises.
-`launches` counts launches.
+tensors only; for CUDA tensors it launches the kernel or raises; for
+`meta` tensors (a dry run) it returns the kernel's fake, empty outputs of
+its shapes. Any other device raises. `launches` counts launches. Under
+an active op counter (`launch.opanalysis`) each call records the
+kernel's FLOPs and bytes (`work.scan_work`), whatever the device, and the
+counter does not count the wrapper's own ops.
 
 Gradients: the kernel has no backward, nor has the reference's Pallas
-kernel. With gradients on, a CUDA call goes through `MambaScan`, a
+kernel. With gradients on, a call goes through `MambaScan`, a
 `torch.autograd.Function` whose forward launches the kernel (with D and
-h0) and keeps its inputs, and whose backward runs the plain version
-again on them (plus x·D) under autograd and returns the gradients of x,
-dt, A, Bs, Cs, D and h0. That plain backward is a Python loop over the
-S steps, each a few small launches. On the CPU the plain version is
-differentiable as it is.
+h0; its plain version on the CPU) and keeps its inputs, and whose
+backward runs the plain version again on them (plus x·D) under autograd
+and returns the gradients of x, dt, A, Bs, Cs, D and h0. That plain
+backward is a Python loop over the S steps, each a few small launches.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
+from repro_torch.launch import opanalysis
 
 STATES = (4, 8, 16, 32)   # the kernel's state sizes N
 
@@ -97,12 +101,22 @@ def _launch(x, dt, A, Bs, Cs, y, h_last, D=None, h0=None) -> int:
 
 
 def _forward(x, dt, A, Bs, Cs, D, h0):
-    """One counted kernel launch on checked CUDA tensors."""
+    """The kernel's function on checked tensors: one counted launch on
+    CUDA, the plain version on the CPU, the kernel's fake on `meta`;
+    recorded for an active op counter."""
     global launches
-    y = torch.empty_like(x)
-    h_last = torch.empty((x.shape[0], x.shape[2], A.shape[1]),
-                         dtype=torch.float32, device=x.device)
-    err = _launch(x, dt, A, Bs, Cs, y, h_last, D, h0)
+    B, S, di = x.shape
+    cost = work.scan_work(B, S, di, A.shape[1], skip=D is not None,
+                          h0=h0 is not None)
+    with opanalysis.kernel("mamba_scan", cost[1], cost[0]):
+        if x.device.type == "cpu":
+            return _plain(x, dt, A, Bs, Cs, D, h0)
+        y = torch.empty_like(x)
+        h_last = torch.empty((B, di, A.shape[1]), dtype=torch.float32,
+                             device=x.device)
+        if x.device.type == "meta":
+            return y, h_last
+        err = _launch(x, dt, A, Bs, Cs, y, h_last, D, h0)
     if err != 0:
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
     launches += 1
@@ -150,11 +164,9 @@ def mamba_scan(x, dt, A, Bs, Cs, D=None, h0=None):
     float32; with gradients on and an input that needs one,
     differentiable (`MambaScan`)."""
     _check(x, dt, A, Bs, Cs, D, h0)
-    if x.device.type == "cpu":
-        return _plain(x, dt, A, Bs, Cs, D, h0)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {x.device}")
-    if A.shape[1] not in STATES:
+    if x.device.type != "cpu" and A.shape[1] not in STATES:
         raise ValueError(f"the kernel takes N in {STATES}, got N={A.shape[1]}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad

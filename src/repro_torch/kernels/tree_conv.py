@@ -49,7 +49,15 @@ occupancy.
 
 Every wrapper runs its plain version (`ref.tree_conv_batch_ref`,
 `ref.tree_cnn_fused_ref`, `ref.tree_cnn_fused_bwd_ref`) for CPU tensors
-only; for CUDA tensors it launches the kernel or raises.
+only; for CUDA tensors it launches the kernel or raises; for `meta`
+tensors (a dry run) it returns the kernel's fake, empty outputs of its
+shapes. Any other device raises. On CUDA and on `meta`, an active op
+counter (`launch.opanalysis`) gets the kernel's FLOPs and bytes
+(`kernels.work`, every node counted as real: the counter reads no data)
+in place of the wrapper's own ops. On the CPU the plain versions are
+counted op by op, as they run: AQORA's CPU gradients are autograd's
+through the plain forward, which the backward kernel's plain version
+does not reproduce bit for bit.
 `tree_cnn_fused_launches` counts the fused forward kernel's launches.
 """
 from __future__ import annotations
@@ -59,7 +67,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
+from repro_torch.launch import opanalysis
 
 LAYERS = ("conv1", "conv2", "conv3")
 WEIGHTS = ("wr", "wl", "wrt", "b")
@@ -126,22 +135,26 @@ def _library():
 
 def _forward(feat, left, right, mask, params: Params):
     """The fused forward on checked inputs: the plain version on the CPU,
-    the kernel on CUDA."""
+    the kernel on CUDA, its fake on `meta`."""
     global tree_cnn_fused_launches
     if feat.device.type == "cpu":
         return ref.tree_cnn_fused_ref(feat, left, right, mask, params)
-    if feat.device.type != "cuda":
+    if feat.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {feat.device}")
     B, N, Fd = feat.shape
     H = params["conv1"]["wr"].shape[-1]
-    out = torch.empty((B, H), dtype=torch.float32, device=feat.device)
-    ptrs = [feat.data_ptr(), left.data_ptr(), right.data_ptr(),
-            mask.data_ptr()]
-    for lname in LAYERS:
-        ptrs += [params[lname][w].data_ptr() for w in WEIGHTS]
-    with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library()(*ptrs, out.data_ptr(), B, N, Fd, H, stream)
+    n_bytes, flops = work.tree_cnn_fused_work(B, N, Fd, H, B * N)
+    with opanalysis.kernel("tree_cnn_fused", flops, n_bytes):
+        out = torch.empty((B, H), dtype=torch.float32, device=feat.device)
+        if feat.device.type == "meta":
+            return out
+        ptrs = [feat.data_ptr(), left.data_ptr(), right.data_ptr(),
+                mask.data_ptr()]
+        for lname in LAYERS:
+            ptrs += [params[lname][w].data_ptr() for w in WEIGHTS]
+        with torch.cuda.device(feat.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _library()(*ptrs, out.data_ptr(), B, N, Fd, H, stream)
     if err != 0:
         raise RuntimeError(f"tree_cnn_fused launch failed: CUDA error {err}")
     tree_cnn_fused_launches += 1
@@ -189,8 +202,8 @@ def tree_cnn_fused_backward(feat, left, right, mask, params: Params, g,
     cotangent g (B, H): (gfeat (B, N, F) or None, gmask (B, N) or None,
     gparams nested as params). CPU tensors take the plain version
     (`ref.tree_cnn_fused_bwd_ref`); CUDA tensors launch the backward
-    kernel or raise. gfeat and gmask are computed only when asked for."""
-    global tree_cnn_fused_bwd_launches
+    kernel or raise; `meta` tensors give empty cotangents. gfeat and gmask
+    are computed only when asked for."""
     _check(feat, left, right, mask, params)
     B, N, Fd = feat.shape
     H = params["conv1"]["wr"].shape[-1]
@@ -199,7 +212,7 @@ def tree_cnn_fused_backward(feat, left, right, mask, params: Params, g,
         gf, gm, gp = ref.tree_cnn_fused_bwd_ref(feat, left, right, mask,
                                                 params, g)
         return (gf if need_feat else None), (gm if need_mask else None), gp
-    if feat.device.type != "cuda":
+    if feat.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {feat.device}")
     if Fd > MAX_HIDDEN:
         raise ValueError(f"the backward kernel takes F <= {MAX_HIDDEN}, "
@@ -207,25 +220,14 @@ def tree_cnn_fused_backward(feat, left, right, mask, params: Params, g,
     shapes = _weight_shapes(Fd, H)
     E = sum(int(torch.Size(s).numel()) for _, _, s in shapes)
     dev = feat.device
-    partial = torch.empty((max(B, 1), E), dtype=torch.float32, device=dev)
-    flat = torch.empty(E, dtype=torch.float32, device=dev)
-    gfeat = torch.empty_like(feat) if need_feat else None
-    gmask = torch.empty_like(mask) if need_mask else None
-    ptrs = [feat.data_ptr(), left.data_ptr(), right.data_ptr(),
-            mask.data_ptr()]
-    for lname in LAYERS:
-        ptrs += [params[lname][w].data_ptr() for w in WEIGHTS]
-    ptrs += [g.data_ptr(), partial.data_ptr(), flat.data_ptr(),
-             0 if gfeat is None else gfeat.data_ptr(),
-             0 if gmask is None else gmask.data_ptr()]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_library()(*ptrs, B, N, Fd, H, stream)
-    if err != 0:
-        raise RuntimeError(f"tree_cnn_fused backward launch failed: CUDA "
-                           f"error {err}")
-    if B > 0:                  # per-tree cluster kernel + summing kernel
-        tree_cnn_fused_bwd_launches += 2
+    n_bytes, flops = work.tree_cnn_fused_bwd_work(B, N, Fd, H, B * N)
+    with opanalysis.kernel("tree_cnn_fused_bwd", flops, n_bytes):
+        flat = torch.empty(E, dtype=torch.float32, device=dev)
+        gfeat = torch.empty_like(feat) if need_feat else None
+        gmask = torch.empty_like(mask) if need_mask else None
+        if dev.type == "cuda":
+            _backward_launch(feat, left, right, mask, params, g, flat,
+                             gfeat, gmask)
     gparams = {lname: {} for lname in LAYERS}
     at = 0
     for lname, w, shape in shapes:
@@ -233,6 +235,31 @@ def tree_cnn_fused_backward(feat, left, right, mask, params: Params, g,
         gparams[lname][w] = flat[at:at + n].view(shape)
         at += n
     return gfeat, gmask, gparams
+
+
+def _backward_launch(feat, left, right, mask, params, g, flat, gfeat,
+                     gmask):
+    """The backward kernel's two launches on checked CUDA tensors."""
+    global tree_cnn_fused_bwd_launches
+    B, N, Fd = feat.shape
+    H = params["conv1"]["wr"].shape[-1]
+    partial = torch.empty((max(B, 1), flat.numel()), dtype=torch.float32,
+                          device=feat.device)
+    ptrs = [feat.data_ptr(), left.data_ptr(), right.data_ptr(),
+            mask.data_ptr()]
+    for lname in LAYERS:
+        ptrs += [params[lname][w].data_ptr() for w in WEIGHTS]
+    ptrs += [g.data_ptr(), partial.data_ptr(), flat.data_ptr(),
+             0 if gfeat is None else gfeat.data_ptr(),
+             0 if gmask is None else gmask.data_ptr()]
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_library()(*ptrs, B, N, Fd, H, stream)
+    if err != 0:
+        raise RuntimeError(f"tree_cnn_fused backward launch failed: CUDA "
+                           f"error {err}")
+    if B > 0:                  # per-tree cluster kernel + summing kernel
+        tree_cnn_fused_bwd_launches += 2
 
 
 class _FusedTreeCNN(torch.autograd.Function):
@@ -314,7 +341,7 @@ def tree_conv(feat, left, right, mask, wr, wl, wrt, b):
     if feat.device.type == "cpu":
         return ref.tree_conv_batch_ref(feat, left, right, mask, wr, wl, wrt,
                                        b)
-    if feat.device.type != "cuda":
+    if feat.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {feat.device}")
     if N > MAX_NODES or Fd > MAX_FEAT:
         raise ValueError(f"the kernel takes N <= {MAX_NODES} and "
@@ -322,8 +349,12 @@ def tree_conv(feat, left, right, mask, wr, wl, wrt, b):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (feat, mask, wr, wl, wrt, b)):
         raise NotImplementedError("the tree_conv kernel has no backward")
-    out = torch.empty((B, N, H), dtype=torch.float32, device=feat.device)
-    err = _conv_launch(feat, left, right, mask, wr, wl, wrt, b, out)
+    n_bytes, flops = work.tree_conv_work(B, N, Fd, H, B * N)
+    with opanalysis.kernel("tree_conv", flops, n_bytes):
+        out = torch.empty((B, N, H), dtype=torch.float32, device=feat.device)
+        if feat.device.type == "meta":
+            return out
+        err = _conv_launch(feat, left, right, mask, wr, wl, wrt, b, out)
     if err != 0:
         raise RuntimeError(f"tree_conv launch failed: CUDA error {err}")
     tree_conv_launches += 1

@@ -19,19 +19,36 @@ whether a launch succeeds):
     (llama4's `attn_chunked`) and MLA, whose v head width differs from
     its q/k width. The reference's Pallas kernel takes neither either.
 
-The reference's policy-driven paths (`attn_scores_bf16`, `attn_remat`,
-`attn_mode`, MLA's absorbed decode) come with the port's sharding tooling;
-with no policy set the reference takes the defaults this module has.
+The reference's policy-driven paths read the active sharding policy
+(`sharding.act`) as the reference reads it; with no policy set each takes
+its default:
+
+  * `attn_scores_bf16`: the scores leave the QK^T product rounded to bf16
+    (the softmax math stays fp32), in `_gqa_scores`;
+  * `attn_remat`: the blockwise path runs under a checkpoint, so that its
+    backward recomputes the per-block probabilities;
+  * `attn_mode`: which dim of q the reference shards; a sharding
+    constraint only, so nothing on one card;
+  * `mla_absorb`: MLA's decode scores against the latent cache
+    (`_mla_absorbed_decode`) instead of re-expanding it through wkv_b.
+
+The kernel route ignores `attn_scores_bf16` and `attn_remat`: the kernel
+never writes scores to memory, and its autograd Function already keeps
+only q, k and v and recomputes the rest in its backward. The two knobs
+change what the dense and blockwise paths compute, which MLA and
+llama4's chunked attention take.
 A decode cache is updated in place.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_dense, apply_norm, apply_rope,
                                        init_dense, init_norm, softcap)
+from repro_torch.sharding import act as act_sharding
 
 DENSE_KV_THRESHOLD = 2048   # Skv above this and Sq > 1 -> blockwise path
 KV_BLOCK = 1024
@@ -59,8 +76,14 @@ def _mask_block(qpos, kpos, kind: str, window: int, chunk: int):
 
 
 def _gqa_scores(q, k, scale, cap):
-    """q: (B,Sq,K,G,hd) k: (B,Sk,K,hd) -> (B,K,G,Sq,Sk) in fp32."""
+    """q: (B,Sq,K,G,hd) k: (B,Sk,K,hd) -> (B,K,G,Sq,Sk) fp32 math; with
+    the policy's attn_scores_bf16, the product is rounded to bf16 as it
+    leaves the matmul (the reference's preferred_element_type) and the
+    softmax chain takes it back to fp32."""
+    pol = act_sharding.current()
     s = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float())
+    if pol is not None and pol.attn_scores_bf16:
+        s = s.to(torch.bfloat16).float()
     return softcap(s * scale, cap)
 
 
@@ -123,8 +146,15 @@ def mha(q, k, v, *, qpos, kpos, kind="causal", window=4096, chunk=8192,
         out = _attn_dense(qg, k, v, qpos, kpos, kind, window, chunk, cap,
                           scale)
     else:
-        out = _attn_blockwise(qg, k, v, qpos, kpos, kind, window, chunk,
-                              cap, scale)
+        args = (qg, k, v, qpos, kpos, kind, window, chunk, cap, scale)
+        pol = act_sharding.current()
+        if pol is not None and pol.attn_remat and torch.is_grad_enabled():
+            # flash-backward semantics: recompute the probabilities in the
+            # backward instead of keeping each block's p and alpha
+            out = checkpoint(_attn_blockwise, *args, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            out = _attn_blockwise(*args)
     return out.reshape(B, Sq, H, v.shape[-1])   # v head dim may differ (MLA)
 
 
@@ -249,9 +279,10 @@ def init_mla(gen, cfg, *, lead=(), device):
 
 
 def apply_mla(p, x, cfg, *, positions, cache=None):
-    """Multi-head latent attention, the reference's naive path. The
-    *latent* (kv_lora + rope-k) is what the decode cache holds; a cache
-    is updated in place. Returns out (B,Sq,D)."""
+    """Multi-head latent attention. The *latent* (kv_lora + rope-k) is
+    what the decode cache holds; a cache is updated in place. A decode
+    step under the policy's `mla_absorb` takes `_mla_absorbed_decode`.
+    Returns out (B,Sq,D)."""
     m = cfg.mla
     B, Sq, D = x.shape
     H = cfg.n_heads
@@ -270,6 +301,10 @@ def apply_mla(p, x, cfg, *, positions, cache=None):
     if cache is not None:
         (c_kv, k_rope), idx = _append(cache, ("ckv", "krope"),
                                       (c_kv, k_rope), Sq)
+        pol = act_sharding.current()
+        if Sq == 1 and pol is not None and pol.mla_absorb:
+            return _mla_absorbed_decode(p, m, q_nope, q_rope, c_kv, k_rope,
+                                        cfg)
         c_kv, k_rope = c_kv.to(x.dtype), k_rope.to(x.dtype)
         kpos = torch.arange(idx + Sq, dtype=torch.int32, device=x.device)
     else:
@@ -287,4 +322,34 @@ def apply_mla(p, x, cfg, *, positions, cache=None):
     out = mha(qfull, k, v, qpos=positions, kpos=kpos, kind="causal",
               scale=(nope + rope_d) ** -0.5)
     out = out.reshape(B, Sq, H * vd)
+    return apply_dense(p, out, "wo", cfg.cdtype)
+
+
+def _mla_absorbed_decode(p, mm, q_nope, q_rope, c_all, kr_all, cfg):
+    """MLA decode with absorbed projections, as the reference's.
+
+    The naive decode path re-expands the whole latent cache through wkv_b
+    every step: O(S * r * H * (nope+v)) FLOPs per token per layer. Scoring
+    against the LATENT instead (fold wkv_b's key half into the query, its
+    value half into the output) costs O(S * H * r), and the (B,S,H,nope+v)
+    expanded cache never exists. c_all/kr_all are the cache's written
+    prefixes [:pos + 1] (the reference masks the rest to -1e30, whose
+    exp is 0). Returns out (B,1,D).
+    """
+    B, _, H, nope = q_nope.shape
+    r = mm.kv_lora_rank
+    vd = mm.v_head_dim
+    wkv_b = p["wkv_b"].to(cfg.cdtype).reshape(r, H, nope + vd)
+    wk = wkv_b[..., :nope]                              # (r, H, nope)
+    wv = wkv_b[..., nope:]                              # (r, H, vd)
+    c_n = apply_norm(p["kv_a_norm"], c_all.to(cfg.cdtype), "rmsnorm")
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(),
+                         wk.float())                    # absorb k-half
+    s = (torch.einsum("bqhr,bsr->bhqs", q_lat, c_n.float())
+         + torch.einsum("bqhd,bsd->bhqs", q_rope.float(), kr_all.float()))
+    s = s * ((nope + mm.qk_rope_head_dim) ** -0.5)
+    pr = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", pr, c_n.float())
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, wv.float())
+    out = out.reshape(B, 1, H * vd).to(cfg.cdtype)
     return apply_dense(p, out, "wo", cfg.cdtype)

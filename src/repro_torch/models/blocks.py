@@ -11,7 +11,14 @@ use_reentrant=False)`, the reference's `jax.checkpoint` with
 `nothing_saveable`: the forward keeps only each superblock's input, and
 the backward runs the superblock's forward again before its own. Serving
 passes `remat=False` (and runs without gradients, where it changes
-nothing).
+nothing). As in the reference, the active sharding policy's `remat`
+picks the mode when `remat=True`: "full" (the above), "none" (no
+checkpoint) or "dots", the counterpart of
+`dots_with_no_batch_dims_saveable`: a selective checkpoint
+(`create_selective_checkpoint_contexts`) that keeps the outputs of the
+2-D matmuls (`aten.mm`, `aten.addmm`) and recomputes everything else,
+batched products (`bmm`) and the kernels' autograd Functions included,
+as the reference recomputes its einsum attention.
 
 The stacked parameters are cut into superblocks with `unbind`, so that
 their gradient is assembled once, by one stack of the superblocks'
@@ -20,14 +27,21 @@ tensor of zeros.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import apply_norm, init_norm, scaled
+from repro_torch.sharding import act as act_sharding
 from repro_torch.tree import tree_map
+
+# the ops whose outputs "dots" keeps: matmuls without a batch dim
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _residual_scale(cfg):
@@ -130,20 +144,38 @@ def unstack(tree, n: int):
     return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the 2-D matmuls' outputs, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_mode(remat: bool) -> str:
+    """The reference's mode: the policy's `remat` ("full", "dots" or
+    "none") when one is set, else "full"; "none" without `remat` or
+    without gradients."""
+    pol = act_sharding.current()
+    mode = pol.remat if pol is not None else "full"
+    return mode if remat and torch.is_grad_enabled() else "none"
+
+
 def apply_stack(params, x, cfg, *, positions, cache=None, memory=None,
                 remat: bool = True):
     """Superblock after superblock of the stacked `params`, each under a
-    checkpoint if `remat` and gradients are on; the stacked `cache`, if
+    checkpoint of the mode `remat_mode` gives; the stacked `cache`, if
     given, is updated in place. Returns (x, aux_sum)."""
-    remat = remat and torch.is_grad_enabled()
+    mode = remat_mode(remat)
+    ckpt = dict(use_reentrant=False, preserve_rng_state=False)
+    if mode == "dots":
+        ckpt["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, sb in enumerate(unstack(params, cfg.n_superblocks)):
         kw = dict(positions=positions, memory=memory,
                   cache=None if cache is None else superblock(cache, i))
-        if remat:
-            x, a = checkpoint(apply_superblock, sb, x, cfg, **kw,
-                              use_reentrant=False, preserve_rng_state=False)
-        else:
+        if mode == "none":
             x, a = apply_superblock(sb, x, cfg, **kw)
+        else:
+            x, a = checkpoint(apply_superblock, sb, x, cfg, **kw, **ckpt)
         aux = aux + a
     return x, aux

@@ -19,9 +19,9 @@ passed as `memory`.
 
 The loss is next-token cross-entropy in fp32 over chunks of CE_CHUNK
 tokens, each chunk under a checkpoint, so that a chunk's (tokens, vocab)
-logits live only while it is computed and again in its backward. The
-reference reads the chunk from its sharding policy when one is set; the
-port has no such policy and reads CE_CHUNK.
+logits live only while it is computed and again in its backward. As in
+the reference, the active sharding policy's `ce_chunk`, when set, takes
+the place of CE_CHUNK (`sharding.act`).
 
 A cache is updated in place: `prefill` and `decode_step` return the cache
 they wrote. Its attention write heads ("pos") are host tensors, so that a
@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import blocks
 from repro_torch.models.common import (apply_norm, init_norm, normal_init,
                                        scaled, softcap)
+from repro_torch.sharding import act as act_sharding
 
 # leaf names the reference casts to cfg.cdtype wherever it reads them
 SERVING_CAST = frozenset({
@@ -158,8 +159,8 @@ def _ce_chunk(carry, xb, tb, mb, w, cap):
 
 def _ce_chunked(params, x, targets, mask, cfg):
     """x: (B,S,D) hidden; targets/mask: (B,S). Computes sum-NLL/sum-mask
-    a chunk of CE_CHUNK tokens at a time, each chunk checkpointed, so the
-    (T, V) logits never exist."""
+    a chunk of CE_CHUNK tokens (or the policy's `ce_chunk`) at a time,
+    each chunk checkpointed, so the (T, V) logits never exist."""
     B, S, D = x.shape
     xn = apply_norm(params["final_norm"], x, cfg.norm,
                     unit_offset=cfg.name.startswith("gemma"))
@@ -169,7 +170,9 @@ def _ce_chunked(params, x, targets, mask, cfg):
     xt = xn.reshape(T, D).to(cfg.cdtype)
     tt = targets.reshape(T).long()
     mt = mask.reshape(T).float()
-    C = min(CE_CHUNK, T)
+    pol = act_sharding.current()
+    C = min(pol.ce_chunk if pol is not None and pol.ce_chunk else CE_CHUNK,
+            T)
     pad = (-T) % C
     if pad:
         xt = F.pad(xt, (0, 0, 0, pad))

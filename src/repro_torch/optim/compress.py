@@ -5,9 +5,9 @@ moving average, not a bias (Seide et al.).
 
 `torch.round` rounds half to even, as `jnp.round` does. Divisions divide
 by tensors (a CUDA tensor divided by a Python number is multiplied by its
-reciprocal, which rounds otherwise). The reference's `compressed_psum`,
-an explicit compressed all-reduce inside `shard_map`, comes with the
-port's sharding tooling.
+reciprocal, which rounds otherwise). `compressed_psum` is the reference's
+explicit compressed all-reduce, over a `torch.distributed` group where
+the reference's runs inside `shard_map`.
 """
 from __future__ import annotations
 
@@ -45,3 +45,19 @@ def compress_grads(grads, error_state=None):
     pairs = tree_map(one, grads, error_state)     # (dq, err) leaves
     return (tree_map(lambda p: p[0], pairs),
             tree_map(lambda p: p[1], pairs))
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Explicit compressed all-reduce over `group` (the default group if
+    None): int8 wire payload, int32 accumulation, fp32 result. The scale
+    is itself all-reduced (max) so dequantization is consistent across
+    ranks, and each rank requantizes against that global scale so that
+    the sum is exact in int32."""
+    import torch.distributed as dist
+    x32 = x.to(torch.float32)
+    _, s = quantize_int8(x32)
+    dist.all_reduce(s, op=dist.ReduceOp.MAX, group=group)
+    q = torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8)
+    tot = q.to(torch.int32)
+    dist.all_reduce(tot, op=dist.ReduceOp.SUM, group=group)
+    return tot.to(torch.float32) * s

@@ -57,6 +57,7 @@ COPIES = (
     "configs/qwen15_4b.py", "configs/qwen3_8b.py", "configs/whisper_tiny.py",
     "data/__init__.py", "data/pipeline.py",
     "runtime/__init__.py", "runtime/elastic.py",
+    "adapt/__init__.py", "adapt/knobs.py", "adapt/search.py",
 )
 
 # Comments in the reference that name project history ("the PR-n path")
@@ -113,7 +114,12 @@ print("clean", n)
 
 # the kernel modules, named so that the walk below cannot miss one
 KERNEL_MODULES = ("build", "ref", "ops", "tree_conv", "mamba_scan",
-                  "flash_attention")
+                  "flash_attention", "work")
+# the layout tooling's modules, named for the same reason
+LAYOUT_MODULES = ("sharding.rules", "sharding.act", "launch.mesh",
+                  "launch.roofline", "launch.opanalysis", "launch.dryrun",
+                  "launch.steps", "adapt.knobs", "adapt.search",
+                  "experiments.perf_climb", "optim.compress")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -124,8 +130,11 @@ def test_port_imports_neither_jax_nor_reference():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name); n += 1\n"
         f"kernels = {KERNEL_MODULES!r}\n"
+        f"layout = {LAYOUT_MODULES!r}\n"
         "missed = [k for k in kernels\n"
         "          if 'repro_torch.kernels.' + k not in sys.modules]\n"
+        "missed += [m for m in layout if 'repro_torch.' + m not in "
+        "sys.modules]\n"
         "assert not missed, missed\n"
         + _LEAK_CHECK)
     assert r.returncode == 0, r.stderr

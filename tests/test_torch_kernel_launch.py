@@ -905,3 +905,61 @@ def test_lm_trains_through_the_kernels(cuda, arch):
     batch = batch_on({"tokens": toks}, cfg, cuda)
     losses = [float(step(p, opt, 0, batch)[3]["loss"]) for _ in range(3)]
     assert losses[-1] < losses[0]
+
+
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.steps import loss_and_grads  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.sharding import act  # noqa: E402
+from repro_torch.tree import flatten  # noqa: E402
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b",
+                                  "dbrx-132b", "minicpm3-4b"])
+def test_counted_step_on_card_equals_meta(cuda, arch):
+    """A reduced train step counted by `launch.opanalysis` on the card
+    equals its count on `meta` (FLOPs, bytes, the kernels' records), and
+    each kernel record is a launch."""
+    cfg = registry.reduced(registry.get_config(arch))
+    shape = ShapeConfig("train_small", 32, 2, "train")
+    meta, _, _ = dryrun.count_step(cfg, shape)
+    params = lm.init_params(torch.Generator(cuda).manual_seed(0), cfg,
+                            device=cuda)
+    opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
+    batch = {"tokens": torch.zeros((2, 32), dtype=torch.int32, device=cuda)}
+    fa0, ms0 = fa.launches, ms.launches
+    card, _, _ = dryrun.count_step(cfg, shape, inputs=(params, opt, batch))
+    torch.cuda.synchronize()
+    assert (card.flops, card.bytes) == (meta.flops, meta.bytes)
+    calls = card.kernel_totals()
+    assert calls == meta.kernel_totals()
+    assert fa.launches - fa0 == calls.get("flash_attention",
+                                          {"calls": 0})["calls"]
+    assert ms.launches - ms0 == calls.get("mamba_scan", {"calls": 0})["calls"]
+
+
+def test_remat_modes_on_the_card(cuda):
+    """remat "full", "dots" and "none" give one loss and one set of
+    gradients on the card (the same ops; "dots" keeps the matmuls'
+    outputs), launching the attention kernel twice, twice and once a
+    layer."""
+    cfg = registry.reduced(registry.get_config("qwen3-8b"))
+    params = lm.init_params(torch.Generator(cuda).manual_seed(0), cfg,
+                            device=cuda)
+    toks = torch.randint(2, cfg.vocab_size, (2, 32), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    layers = cfg.n_layers
+    out = {}
+    for mode, per_layer in (("full", 2), ("dots", 2), ("none", 1)):
+        before = fa.launches
+        with act.policy(act.ActivationPolicy(remat=mode)):
+            (loss, _), grads = loss_and_grads(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        assert fa.launches - before == per_layer * layers, mode
+        out[mode] = (float(loss), flatten(grads))
+    for mode in ("dots", "none"):
+        assert out[mode][0] == out["full"][0], mode
+        for (path, a), (_, b) in zip(out["full"][1], out[mode][1]):
+            assert float((a - b).abs().max()) <= \
+                1e-5 * float(a.abs().max()), (mode, path)
