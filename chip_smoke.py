@@ -149,7 +149,12 @@ Phases, each printing one JSON line:
            time, the plain version's, the card's bound, the special-function
            floor of its exps (`sfu_ms`: exps over 16 a clock on each SM at
            the card's top SM clock) and, where one SDPA call computes the
-           same function (every qwen3-8b case), that call's time. The scan
+           same function (every qwen3-8b case), that call's time
+           (gemma2-27b's two cases: a compiled `flex_attention` with the
+           softcap as its score_mod and the sliding-window causal block
+           mask, timed after its compile once its output is within the
+           case's limits of the plain version; if it is not, or cannot
+           run, the row says why). The scan
            and tree-conv rows add the kernel's own time by torch.profiler
            (`device_ms`); the scan rows also time the whole
            `selective_scan_fused` call (`op_ms`) and count its device
@@ -163,12 +168,36 @@ and device ms for one greedy act_batch of its first training batch.
 These readings come after the ops phase's own, which then are the first
 in the process.
 
+Then the `rng` phase, the seeded build through the threefry kernel
+(`kernels/threefry.py`, csrc/threefry.cu): qwen3-8b at full width and
+depth (8.19 B fp32 draws, 32.8 GB) from `lm.init_params(prng_key(0))`,
+the reference's `init_params(PRNGKey(0))`, one launch a drawn leaf.
+Three 2^16-element slices of every leaf (the first key's first, the
+middle key's middle, the last key's last) must equal the plain version
+(`ref.random_normal_ref`, on the CPU) bit for bit, 0 mismatched words;
+two planted faults (one element an ulp off; the plain version with one
+Threefry rotation constant wrong) must be refused by the same check.
+The line gives the build's seconds, the full draw's kernel time (CUDA
+events, the kernel relaunched into the build's leaves), the plain
+version's on the card, `torch.Tensor.normal_`'s on the same leaves (it
+draws other numbers) and two bounds, each the larger of the output's
+bytes at 3.35 TB/s and an issue time of instructions a draw, one a clock
+on each of an SM's 4 schedulers at the card's top SM clock: the
+function's operations a draw (`work.THREEFRY_DRAW`, an FMA as one: the
+kernels line's bound) and the compiled kernel's instructions on its
+common path (`cuobjdump -sass`). Then the Gumbel kernel alone at a
+sampled decode step's (B, V) (8 rows of qwen3-8b's 151,936 logits): its
+noise against the plain version on the CPU, 0 mismatched words, its time
+(CUDA events), the plain version's on the card and the same two bounds;
+no one PyTorch call draws Gumbel noise.
+
 Then the `lm` phase, the LM serving path (`launch.serve.BatchedServer`)
 at the published configs (src/repro_torch/configs), full depth, nothing
 cut: qwen3-8b (36 attention layers, every one through flash_attention)
 and then falcon-mamba-7b (64 Mamba layers, every prefill through
-mamba_scan), weights from torch.Generator("cuda").manual_seed(0), each
-model freed before the next is built. Each serves 8 prompts of 128
+mamba_scan), weights from `BatchedServer(seed=0)`: `prng_key(0)` through
+the threefry kernel (one launch a drawn leaf), each model freed before
+the next is built. Each serves 8 prompts of 128
 tokens (default_rng(0), in [2, vocab)) and 32 greedy tokens; one
 `generate` must launch flash_attention 36 * (1 + 32) = 1188 times at
 qwen3-8b and mamba_scan 64 times at falcon-mamba-7b, and nothing else of
@@ -180,9 +209,17 @@ and two planted faults at the same calls (`planted_faults`: a causal mask
 one key short, the first 64-key tile left unread) must fall outside the
 same limit. The first
 LM_CPU_LAYERS layers of the same weights serve 2 prompts of 32 tokens
-and 4 decode steps on the card and, copied, on the CPU: every logit
+and 4 decode steps on the card and, copied, on the CPU, each step
+sampled as a generate samples (the same keys on both sides, the Gumbel
+noise from the kernel and from the plain version, which must be equal
+bit for bit) and the CPU's sampled tokens fed to both: every logit
 within LM_LOGIT_RTOL of the CPU's largest, greedy tokens equal wherever
-the top-2 margin exceeds twice that (the smallest such margin printed).
+the top-2 margin exceeds twice that (the smallest such margin printed),
+sampled tokens equal wherever the top-2 margin of logits plus noise
+exceeds twice the largest logit error (every margin printed). One
+sampled `generate` (seed LM_SAMPLE_SEED) on the full model must launch
+the Gumbel kernel once a decode step, its first and last steps' noise
+equal to the plain version's bit for bit.
 The line gives prefill and decode seconds and tok/s of a warm
 `generate`, the median ms of a decode step beside its bound (the serving
 copy's weights a step reads over 3.35 TB/s), the last LM_PROFILED steps
@@ -194,8 +231,8 @@ torch.profiler reading.
 
 Then the `train_lm` phase, the LM training path (`launch.train`'s
 train step: `lm.loss_fn` with remat, autograd, AdamW) on the card, each
-model built from torch.Generator("cuda").manual_seed(0) and freed before
-the next: qwen3-8b at full width and 12 of its 36 layers (3.56 B
+model built from prng_key(0) through the threefry kernel and freed
+before the next: qwen3-8b at full width and 12 of its 36 layers (3.56 B
 parameters: fp32 params, grads and both moments take 57 GB), 4 steps on
 4 x 1024 tokens; falcon-mamba-7b at full width and 16 of its 64 layers, 3
 steps on 2 x 512 tokens (its scan's backward is the plain version, a
@@ -221,7 +258,7 @@ Then the `layout` phase, the layout re-optimizer and its tooling
 (`launch.dryrun`, `launch.opanalysis`, `adapt/`, the policy-driven model
 paths, `optim.compress.compressed_psum`) at the train_lm phase's qwen3-8b
 cell (full width, LAYOUT_LAYERS layers, LAYOUT_B x LAYOUT_S tokens,
-weights from torch.Generator("cuda").manual_seed(0)): one train step
+weights from prng_key(0) through the threefry kernel): one train step
 counted op by op on the `meta` device and the same step counted on the
 card, whose FLOPs, bytes and kernel records must be equal, and the
 card's `torch.cuda.max_memory_allocated()` within LAYOUT_PEAK_RATIO of
@@ -255,7 +292,10 @@ wall time.
 Then the kernels summary line (the encoder rows' launches sum the serve,
 learn, qos, control, gen and ablate phases', and the train, learn, qos,
 control and ablate phases' for the backward; the attention and scan rows
-the lm, train_lm, layout and ops phases'), the `nvidia-smi` line, and
+the lm, train_lm, layout and ops phases'; the threefry_normal row the
+rng phase's build and the lm, train_lm and layout phases' builds, the
+threefry_gumbel row the lm phase's sampled steps), the `nvidia-smi`
+line, and
 the result line `{"ok": true, "device": {...}}`. Any failure raises and
 exits non-zero (the learn, qos, control, gen and ablate phases check
 every case first and name each mismatch); without CUDA the script exits
@@ -268,6 +308,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -300,7 +341,8 @@ from repro_torch.core.train_loop import evaluate, train_agent  # noqa: E402
 from repro_torch.data import SyntheticLMPipeline  # noqa: E402
 from repro_torch.experiments import main_experiment  # noqa: E402
 from repro_torch.gen.world import sample_world  # noqa: E402
-from repro_torch.kernels import build, ops, ref, tree_conv, work  # noqa: E402,E501
+from repro_torch.kernels import (build, ops, ref, threefry,  # noqa: E402
+                                 tree_conv, work)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -2198,10 +2240,305 @@ def phase_profile(db, wl, meta, params):
                          "median_us": med} for k, ms, n, med in rows[:12]]})
 
 
+# -------------------------------------------------------------- rng phase
+# The seeded build through the threefry kernel (kernels/threefry.py):
+# qwen3-8b at full width and depth from prng_key(0), the reference's
+# `init_params(PRNGKey(0))`. Each leaf the build draws is held to the
+# kernel's plain version (`ref.random_normal_ref`, on the CPU) on three
+# RNG_SLICE-element slices (the first key's first, the middle key's
+# middle, the last key's last), bit for bit: 0 mismatched words allowed.
+# Two planted faults must be refused by the same check: one element an
+# ulp off, and the plain version with one Threefry rotation constant
+# wrong. Then the full draw's time: the kernel relaunched into the
+# build's own leaves (CUDA events over every leaf's launch), the plain
+# version on the card in RNG_PLAIN_CHUNK-element slices, and
+# `torch.Tensor.normal_` (which draws other numbers: Philox) on the same
+# leaves. Each bound is the larger of the output's bytes at 3.35 TB/s and
+# instructions a draw issued at one warp instruction a clock on each of
+# an SM's 4 schedulers at the card's top SM clock: the function's
+# operations (`work.THREEFRY_DRAW`, an FMA as one; the kernels line's
+# bound) or the compiled kernel's (`cuobjdump -sass`, the common path).
+# Then the Gumbel kernel at a sampled decode step's (B, V) =
+# (LM_REQUESTS, qwen3-8b's vocabulary), key split(prng_key(LM_SAMPLE_SEED))
+# [1]: bit for bit against the plain version on the CPU, timed beside the
+# plain version on the card and the same two bounds.
+RNG_ARCH = "qwen3-8b"
+RNG_SLICE = 1 << 16
+RNG_PLAIN_CHUNK = 1 << 25
+RNG_BAD_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 25))   # 24 -> 25
+SCHEDULERS_PER_SM, WARP = 4, 32
+SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+
+
+def sass_path_instructions(library, function) -> dict:
+    """The instructions of the kernel whose mangled name holds
+    `function`, from `cuobjdump -sass` of its library: on its common path
+    (from the entry to the first unpredicated EXIT; a rare branch such as
+    a division's slow path is a predicated CALL there, its body past the
+    EXIT), and in all, NOPs left out of both."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = pathlib.Path(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    for part in text.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        if function not in name:
+            continue
+        ops = [m.group(1) for m in map(SASS_LINE.match, body.splitlines())
+               if m and not m.group(1).startswith("NOP")]
+        path = next(i for i, op in enumerate(ops) if op == "EXIT") + 1
+        return {"function": name.strip(), "path": path, "all": len(ops)}
+    raise AssertionError(f"no {function} in {library}")
+
+
+def issue_ms(instructions, draws) -> float:
+    """`draws` threads of `instructions` each, issued one warp
+    instruction a clock on each of the card's schedulers at its top SM
+    clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return instructions * draws / WARP / (
+        sms * SCHEDULERS_PER_SM * sm_clock_hz()) * 1e3
+
+
+def draw_bounds(kind, draws, itemsize, kernel) -> dict:
+    """The bounds of `draws` draws of the threefry kernel `kind`: bytes,
+    the function's operations and the compiled kernel's instructions."""
+    sass = sass_path_instructions(build.library_path("threefry"), kernel)
+    byte_ms = itemsize * draws / HBM_BYTES_PER_S * 1e3
+    fn_ms = issue_ms(work.THREEFRY_DRAW[kind][0], draws)
+    sass_ms = issue_ms(sass["path"], draws)
+    return {"bound_ms": max(fn_ms, byte_ms),
+            "bound_by": "operations" if fn_ms >= byte_ms else "bytes",
+            "bytes_bound_ms": byte_ms, "issue_bound_ms": fn_ms,
+            "function_ops": work.THREEFRY_DRAW[kind][0],
+            "sass_bound_ms": max(sass_ms, byte_ms), "sass_issue_ms": sass_ms,
+            "sass": sass}
+
+
+class DrawTap:
+    """Stands in for one function of a module while the main path runs:
+    calls it and keeps (keys, n, keyword arguments but the device, result)
+    of each call. The calls launch what they launched before."""
+
+    def __init__(self, module, name, clone=False):
+        self.module, self.name, self.clone = module, name, clone
+        self.fn, self.calls = getattr(module, name), []
+
+    def __enter__(self):
+        def record(keys, n, **kw):
+            out = self.fn(keys, n, **kw)
+            self.calls.append((np.array(keys), n,
+                               {k: v for k, v in kw.items() if k != "device"},
+                               out.clone() if self.clone else out))
+            return out
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def words(t):
+    t = t.detach().cpu()
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def rng_slices(L, n):
+    """(key row, offset, length) of a leaf's three checked slices."""
+    m = min(RNG_SLICE, n)
+    return [(0, 0, m), (L // 2, (n - m) // 2, m), (L - 1, n - m, m)]
+
+
+def rng_leaf_checks(calls):
+    """Every drawn leaf's three slices against the plain version on the
+    CPU: mismatched words a leaf (0 allowed), then the two planted
+    faults on the first leaf's first slice."""
+    rows, got0, plain0 = [], None, None
+    for keys, n, kw, out in calls:
+        flat = keys.reshape(-1, 2)
+        leaf = out.view(len(flat), n)
+        mism, err = 0, 0.0
+        for row, at, m in rng_slices(len(flat), n):
+            got = leaf[row, at:at + m].cpu()
+            want = threefry.normal(flat[row], m, device="cpu", offset=at,
+                                   **kw)
+            mism += int((words(got) != words(want)).sum())
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            if got0 is None:
+                got0, plain0 = words(got), words(want)
+        rows.append({"shape": list(out.shape),
+                     "dtype": str(out.dtype).replace("torch.", ""),
+                     "stddev": kw.get("stddev", 1.0), "draws": out.numel(),
+                     "checked": 3 * min(RNG_SLICE, n), "mismatches": mism,
+                     "max_abs_err": err})
+    keys, n, kw, _ = calls[0]
+    off_by_ulp = got0.clone()
+    off_by_ulp[len(off_by_ulp) // 3] += 1
+    saved = prng._ROTATIONS
+    prng._ROTATIONS = RNG_BAD_ROTATIONS
+    try:
+        bad_rotation = words(threefry.normal(
+            keys.reshape(-1, 2)[0], len(got0), device="cpu", **kw))
+    finally:
+        prng._ROTATIONS = saved
+    planted = {"off_by_one_ulp": int((off_by_ulp != plain0).sum()),
+               "rotation_24_to_25": int((got0 != bad_rotation).sum())}
+    return rows, planted
+
+
+def rng_times(calls):
+    """The full draw's ms by CUDA events: the kernel relaunched into the
+    build's leaves (no wrapper: no count), the plain version on the card
+    and `normal_` on the same leaves (overwriting them)."""
+    fn = threefry._library("threefry_normal")
+    stream = torch.cuda.current_stream().cuda_stream
+    launches = []
+    for keys, n, kw, out in calls:
+        dk = threefry._device_keys(keys, "cuda")
+        launches.append((dk, n, float(np.float32(kw.get("stddev", 1.0))),
+                         out, int(out.dtype == torch.bfloat16)))
+
+    def kernel():
+        for dk, n, stddev, out, bf16 in launches:
+            err = fn(dk.data_ptr(), dk.shape[0], n, 0, stddev,
+                     out.data_ptr(), bf16, stream)
+            if err:
+                raise RuntimeError(f"threefry_normal: CUDA error {err}")
+
+    def plain():
+        for dk, n, stddev, out, _ in launches:
+            for row in dk.long() & 0xFFFFFFFF:     # the uint32 words
+                for at in range(0, n, RNG_PLAIN_CHUNK):
+                    ref.random_normal_ref(row, min(RNG_PLAIN_CHUNK, n - at),
+                                          at, stddev)
+
+    def library():
+        for _, _, stddev, out, _ in launches:
+            out.normal_(0.0, stddev)
+    ms_kernel = cuda_ms(kernel, launches=1, reps=3, warmup=1)
+    ms_plain = cuda_ms(plain, launches=1, reps=1, warmup=0)
+    ms_library = cuda_ms(library, launches=1, reps=3, warmup=1)
+    return ms_kernel, ms_plain, ms_library
+
+
+def phase_rng():
+    """The seeded full-width build through the threefry kernel (the
+    section's comment). Every check runs before any fails. Returns the
+    phase's launches, its kernels-line row and the lm phase's build
+    reading."""
+    bad = []
+    cfg = registry.get_config(RNG_ARCH)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    threefry.normal_launches = threefry.gumbel_launches = 0
+    with DrawTap(threefry, "normal") as tap:
+        params = lm.init_params(prng.prng_key(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launched = threefry.normal_launches
+    if launched != len(tap.calls) or launched == 0:
+        bad.append(f"the build launched {launched} for {len(tap.calls)} "
+                   f"leaves")
+    draws = sum(out.numel() for _, _, _, out in tap.calls)
+    if draws + sum(t.numel() for k, t in flatten(params)
+                   if k.endswith(("scale", "bias"))) != cfg.param_count():
+        bad.append(f"drew {draws} of {cfg.param_count()} parameters")
+    t0 = time.perf_counter()
+    leaves, planted = rng_leaf_checks(tap.calls)
+    check_s = time.perf_counter() - t0
+    bad += [f"leaf {r}" for r in leaves if r["mismatches"]]
+    bad += [f"planted fault {k} not refused"
+            for k, v in planted.items() if v == 0]
+    finite = all(bool(torch.isfinite(out).all()) for *_, out in tap.calls)
+    if not finite:
+        bad.append("a drawn leaf is not finite")
+    ms_kernel, ms_plain, ms_library = rng_times(tap.calls)
+    bounds = draw_bounds("normal", draws, 4, "normal_kernelIf")
+    source = {"route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/threefry.cu"}
+    normal_row = {
+        "name": "threefry_normal", **source,
+        "replaces": "none: jax.random.normal in src/repro/models/common.py:14",
+        "launches": launched,
+        "max_abs_err": max(r["max_abs_err"] for r in leaves),
+        "ms": ms_kernel, "plain_ms": ms_plain,
+        **{k: bounds[k] for k in ("bound_ms", "bound_by")},
+        "library_ms": ms_library, "case": f"{RNG_ARCH}/full-draw"}
+    del params, tap
+    torch.cuda.empty_cache()
+    gumbel_row, gumbel = gumbel_step(cfg, bad)
+    emit({"phase": "rng", "arch": RNG_ARCH, "params": cfg.param_count(),
+          "draws": draws, "leaves_drawn": len(leaves),
+          "build_s": build_s, "launches": {"threefry_normal": launched},
+          "ms": ms_kernel, "plain_ms": ms_plain,
+          "library_ms": ms_library,
+          "library_note": "torch.Tensor.normal_(0, stddev) on each leaf: "
+                          "Philox, other numbers",
+          **bounds, "sm_clock_max_mhz": sm_clock_hz() / 1e6,
+          "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+          "kernel_over_bound": ms_kernel / bounds["bound_ms"],
+          "kernel_over_sass_bound": ms_kernel / bounds["sass_bound_ms"],
+          "draws_per_ns": draws / ms_kernel / 1e6,
+          "leaf_checks": leaves, "check_s": check_s,
+          "planted_mismatches": planted, "finite": finite,
+          "gumbel": gumbel,
+          "nvidia_smi": nvidia_smi(), "ok": not bad, "mismatches": bad})
+    if bad:
+        raise AssertionError(f"rng phase: {bad}")
+    return {"threefry_normal": launched}, [normal_row, {
+        "name": "threefry_gumbel", **source,
+        "replaces": "none: jax.random.categorical in "
+                    "src/repro/launch/serve.py:61", **gumbel_row}]
+
+
+def gumbel_step(cfg, bad):
+    """The Gumbel kernel at a sampled decode step's (B, V): its noise
+    against the plain version on the CPU (0 mismatched words), its time
+    (the kernel relaunched, no wrapper: no count), the plain version's on
+    the card and the bounds. Returns the kernels-line fields and the
+    phase line's reading."""
+    B, V = LM_REQUESTS, cfg.vocab_size
+    n = B * V
+    key = prng.split(prng.prng_key(LM_SAMPLE_SEED))[1]
+    dk = threefry._device_keys(key, "cuda")
+    out = torch.empty(n, dtype=torch.float32, device="cuda")
+    fn = threefry._library("threefry_gumbel")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel():
+        err = fn(dk.data_ptr(), 1, n, 0, out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"threefry_gumbel: CUDA error {err}")
+    kernel()
+    got = out.cpu()
+    want = threefry.gumbel(key, n, device="cpu")
+    mism = int((words(got) != words(want)).sum())
+    err = float((got - want).abs().max())
+    if mism:
+        bad.append(f"gumbel at ({B}, {V}): {mism} mismatched words")
+    row = dk.long() & 0xFFFFFFFF                  # the uint32 words
+    ms_kernel = cuda_ms(kernel, launches=20, warmup=3)
+    ms_plain = cuda_ms(lambda: ref.random_gumbel_ref(row, n),
+                       launches=1, reps=3, warmup=1)
+    bounds = draw_bounds("gumbel", n, 4, "gumbel_kernel")
+    fields = {"max_abs_err": err, "ms": ms_kernel, "plain_ms": ms_plain,
+              **{k: bounds[k] for k in ("bound_ms", "bound_by")},
+              "library_ms": None,
+              "library_note": "none: no one PyTorch call draws Gumbel noise",
+              "case": f"{cfg.name}/sampled-step/B{B}"}
+    return fields, {"shape": [B, V], "mismatched_words": mism,
+                    "max_abs_err": err, "ms": ms_kernel,
+                    "plain_ms": ms_plain, **bounds,
+                    "kernel_over_bound": ms_kernel / bounds["bound_ms"],
+                    "kernel_over_sass_bound":
+                        ms_kernel / bounds["sass_bound_ms"]}
+
+
 # --------------------------------------------------------------- lm phase
 # The LM serving path (`launch.serve.BatchedServer`) at the published
 # configs (src/repro_torch/configs), full depth, weights from
-# torch.Generator("cuda").manual_seed(0): LM_REQUESTS prompts of LM_PROMPT
+# prng_key(0) through the threefry kernel: LM_REQUESTS prompts of LM_PROMPT
 # tokens from default_rng(0) in [2, vocab), then LM_GEN greedy tokens.
 LM_ARCHS = ("qwen3-8b", "falcon-mamba-7b")
 LM_REQUESTS, LM_PROMPT, LM_GEN = 8, 128, 32
@@ -2219,6 +2556,13 @@ LM_ATTN_SK = (LM_PROMPT, LM_PROMPT + 1, LM_PROMPT + LM_GEN)
 # top-2 margin exceeds twice that.
 LM_CPU_LAYERS, LM_CPU_REQUESTS, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 2, 32, 4
 LM_LOGIT_RTOL = 3e-2
+# sampled decoding (`generate(greedy=False, seed=LM_SAMPLE_SEED)`): the
+# Gumbel noise the kernel draws at a generate's first and last decode
+# steps equal to the plain version's bit for bit; in the card-vs-CPU
+# comparison each step's sampled token argmax(logits + noise), the same
+# keys on both sides, equal wherever the CPU's top-2 margin of logits plus
+# noise exceeds twice the largest card-vs-CPU logit error
+LM_SAMPLE_SEED = 1
 LM_PROFILED = 4            # the last decode steps, under torch.profiler
 
 
@@ -2375,47 +2719,106 @@ def cache_copy_ms(cfg, attn_layers):
 def lm_card_vs_cpu(server, prompts):
     """The first LM_CPU_LAYERS layers of the server's serving copy on the
     card and, copied, on the CPU: prefill logits, then LM_CPU_STEPS decode
-    steps on the CPU's greedy tokens. Returns the comparison's row."""
+    steps fed the CPU's sampled tokens. Each step (the prefill's too)
+    samples as a generate does: key, k = split(key) from
+    prng_key(LM_SAMPLE_SEED), the token argmax(logits + gumbel(k)), the
+    noise from the kernel on the card and the plain version on the CPU.
+    Returns the comparison's row."""
     cfg = dataclasses.replace(server.cfg, n_layers=LM_CPU_LAYERS)
     card = dict(server.serving,
                 stack=tree_map(lambda t: t[:cfg.n_superblocks],
                                server.serving["stack"]))
     cpu = tree_map(lambda t: t.cpu(), card)
     toks = prompts[:LM_CPU_REQUESTS, :LM_CPU_PROMPT].astype(np.int64)
-    runs = {}
+    runs, noises, fed = {}, {}, []
     t0 = time.perf_counter()
-    cpu_logits = []
     for side, p in (("cpu", cpu), ("cuda", card)):
+        key = prng.prng_key(LM_SAMPLE_SEED)
+        out, noise = [], []
         with torch.inference_mode():
             logits, cache = lm.prefill(p, torch.as_tensor(toks, device=side),
                                        cfg, LM_CPU_PROMPT + LM_CPU_STEPS)
-            out = [logits.float().cpu()]
-            for s in range(LM_CPU_STEPS):
-                tok = (cpu_logits[s] if side == "cuda" else out[-1]) \
-                    .argmax(-1)[:, None].to(side)
-                logits, cache = lm.decode_step(p, tok, cache, cfg,
-                                               LM_CPU_PROMPT + s)
+            for s in range(LM_CPU_STEPS + 1):
+                key, k = prng.split(key)
+                g = threefry.gumbel(k, logits.numel(), device=side)
                 out.append(logits.float().cpu())
-        runs[side] = out
-        if side == "cpu":
-            cpu_logits = out
+                noise.append(g.view(logits.shape).cpu())
+                if s == LM_CPU_STEPS:
+                    break
+                if side == "cpu":
+                    fed.append((out[-1] + noise[-1]).argmax(-1)[:, None])
+                logits, cache = lm.decode_step(p, fed[s].to(side), cache,
+                                               cfg, LM_CPU_PROMPT + s)
+        runs[side], noises[side] = out, noise
         del cache
     limit = LM_LOGIT_RTOL * float(max(t.abs().max() for t in runs["cpu"]))
-    err, margins, flips = 0.0, [], 0
-    for want, got in zip(runs["cpu"], runs["cuda"]):
-        err = max(err, float((got - want).abs().max()))
+    err = max(float((got - want).abs().max())
+              for want, got in zip(runs["cpu"], runs["cuda"]))
+    noise_mismatches = sum(int((words(a) != words(b)).sum())
+                           for a, b in zip(noises["cpu"], noises["cuda"]))
+    margins, flips, z_margins, z_flips = [], 0, [], 0
+    for want, got, g in zip(runs["cpu"], runs["cuda"], noises["cuda"]):
         top2 = want.topk(2, dim=-1).values
         margin = top2[:, 0] - top2[:, 1]
         sure = margin > 2 * limit
         margins += margin[sure].tolist()
         flips += int((got.argmax(-1) != want.argmax(-1))[sure].sum())
+        z_want, z_got = want + g, got + g
+        top2 = z_want.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        sure = margin > 2 * err
+        z_margins += margin.tolist()
+        z_flips += int((z_got.argmax(-1) != z_want.argmax(-1))[sure].sum())
+    compared = [m for m in z_margins if m > 2 * err]
     return {"layers": LM_CPU_LAYERS, "requests": LM_CPU_REQUESTS,
             "prompt": LM_CPU_PROMPT, "decode_steps": LM_CPU_STEPS,
             "max_abs_err": err, "limit": limit, "rtol": LM_LOGIT_RTOL,
-            "ok": err <= limit and flips == 0,
+            "ok": (err <= limit and flips == 0 and z_flips == 0
+                   and noise_mismatches == 0),
             "tokens_compared": len(margins), "token_flips": flips,
             "min_compared_margin": min(margins, default=None),
+            "sampled": {"seed": LM_SAMPLE_SEED,
+                        "noise_mismatched_words": noise_mismatches,
+                        "margins": z_margins, "compare_above": 2 * err,
+                        "tokens_compared": len(compared),
+                        "token_flips": z_flips,
+                        "min_compared_margin": min(compared, default=None)},
             "seconds": time.perf_counter() - t0}
+
+
+def leaves_drawn(cfg) -> int:
+    """The threefry normal draws (one launch each) a build of `cfg` makes:
+    its wrapper's calls in a build on `meta`."""
+    with DrawTap(threefry, "normal") as tap:
+        lm.init_params(None, cfg, device="meta")
+    return len(tap.calls)
+
+
+def sampled_generate(server, prompts, bad):
+    """One `generate(greedy=False)` on the card, each step's Gumbel noise
+    recorded: a launch a decode step, the first and last steps' noise
+    equal to the plain version's bit for bit."""
+    arch = server.cfg.name
+    threefry.gumbel_launches = 0
+    with DrawTap(threefry, "gumbel", clone=True) as tap:
+        out, _ = server.generate(prompts, LM_GEN, greedy=False,
+                                 seed=LM_SAMPLE_SEED)
+    torch.cuda.synchronize()
+    launched = threefry.gumbel_launches
+    mism = 0
+    for keys, n, kw, noise in (tap.calls[0], tap.calls[-1]):
+        want = threefry.gumbel(keys, n, device="cpu", **kw)
+        mism += int((words(noise) != words(want)).sum())
+    row = {"seed": LM_SAMPLE_SEED, "launches": launched,
+           "want_launches": LM_GEN,
+           "noise_checked": 2 * tap.calls[0][1],
+           "noise_mismatched_words": mism, "sample": out[0, :8].tolist(),
+           "in_vocabulary": bool(((out >= 0)
+                                  & (out < server.cfg.vocab_size)).all())}
+    row["ok"] = launched == LM_GEN and mism == 0 and row["in_vocabulary"]
+    if not row["ok"]:
+        bad.append(f"{arch}: sampled generate: {row}")
+    return row, launched
 
 
 def lm_serve(arch, bad):
@@ -2424,10 +2827,15 @@ def lm_serve(arch, bad):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    threefry.normal_launches = 0
     server = BatchedServer(cfg, max_batch=LM_REQUESTS, seed=0,
                            max_len=LM_PROMPT + LM_GEN, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    drawn = threefry.normal_launches
+    if drawn != leaves_drawn(cfg):
+        bad.append(f"{arch}: the build launched threefry {drawn} times for "
+                   f"{leaves_drawn(cfg)} drawn leaves")
     # the build's peak holds the fp32 tree and its serving copy at once
     build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     serving_gb = torch.cuda.memory_allocated() / 1e9
@@ -2454,12 +2862,16 @@ def lm_serve(arch, bad):
     launched = {"flash_attention": fa.launches, "mamba_scan": ms.launches}
     if launched != want:
         bad.append(f"{arch}: a generate launched {launched}, want {want}")
+    launched = dict(launched)
     checks = lm_attention_checks(attn.calls) + lm_scan_checks(scan.calls)
     if len(checks) != (len(LM_ATTN_SK) if attn_layers else 0) \
             + (2 if mamba_layers else 0):
         bad.append(f"{arch}: recorded {len(checks)} kernel calls")
     bad += [f"{arch}: {c}" for c in checks if not c["ok"]]
     del attn, scan
+    sampled, sampled_launches = sampled_generate(server, prompts, bad)
+    launched["threefry_normal"] = drawn
+    launched["threefry_gumbel"] = sampled_launches
     _, stats = server.generate(prompts, LM_GEN)         # warm: the times
     step_ms, step_profile = decode_steps(server, prompts)
     weight_bytes = decode_weight_bytes(server.serving, cfg, LM_REQUESTS)
@@ -2472,6 +2884,7 @@ def lm_serve(arch, bad):
            "gen": LM_GEN, "launches": launched, "want_launches": want,
            "finite_tokens": bool(((out >= 0) & (out < cfg.vocab_size)).all()),
            "sample": out[0, :8].tolist(), "build_s": build_s,
+           "build_threefry_launches": drawn, "sampled": sampled,
            **stats, "decode_step_ms_median": step_ms,
            "decode_step_profile": step_profile,
            "decode_cache_copy_ms": cache_copy_ms(cfg, attn_layers),
@@ -2493,7 +2906,8 @@ def phase_lm():
     Mamba prefill through mamba_scan), one after the other. Every check
     runs before any fails. Returns the phase's launches."""
     bad, rows = [], []
-    total = {"flash_attention": 0, "mamba_scan": 0}
+    total = {"flash_attention": 0, "mamba_scan": 0, "threefry_normal": 0,
+             "threefry_gumbel": 0}
     t0 = time.perf_counter()
     for arch in LM_ARCHS:
         row, launched = lm_serve(arch, bad)
@@ -2801,8 +3215,7 @@ def train_cell(arch, layers, B, S, steps, bad):
     torch.cuda.reset_peak_memory_stats()
     walls = {}
     t0 = time.perf_counter()
-    gen = torch.Generator("cuda").manual_seed(0)
-    params = lm.init_params(gen, cfg, device="cuda")
+    params = lm.init_params(prng.prng_key(0), cfg, device="cuda")
     opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
     pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=S,
                                global_batch=B, seed=0, n_logical_shards=B,
@@ -3026,12 +3439,11 @@ def layout_shape():
 
 
 def layout_state(cfg):
-    """Parameters from torch.Generator("cuda").manual_seed(0), fresh AdamW
-    state, and the pipeline's first LAYOUT_STEPS + 1 batches (tokens only:
-    the dry run's batch), all on the card."""
+    """Parameters from prng_key(0), fresh AdamW state, and the pipeline's
+    first LAYOUT_STEPS + 1 batches (tokens only: the dry run's batch), all
+    on the card."""
     torch.cuda.empty_cache()
-    gen = torch.Generator("cuda").manual_seed(0)
-    params = lm.init_params(gen, cfg, device="cuda")
+    params = lm.init_params(prng.prng_key(0), cfg, device="cuda")
     opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
     pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=LAYOUT_S,
                                global_batch=LAYOUT_B, seed=0,
@@ -3235,8 +3647,8 @@ def layout_mla(bad):
     cfg = registry.get_config(MLA_ARCH)
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    gen = torch.Generator("cuda").manual_seed(0)
-    serving = lm.serving_params(lm.init_params(gen, cfg, device="cuda"), cfg)
+    serving = lm.serving_params(
+        lm.init_params(prng.prng_key(0), cfg, device="cuda"), cfg)
     torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     P = MLA_CACHE - 1
@@ -3288,9 +3700,9 @@ def layout_mla(bad):
 
 
 def moe_case(cfg, T, device, gen):
-    """One MoE layer's parameters and a (1, T, D) input on `device`,
-    from `gen` (bf16 at full width: the serving copy)."""
-    p = moe.init_moe(gen, cfg, device=device)
+    """One MoE layer's parameters from prng_key(0) and a (1, T, D) input
+    from `gen`, on `device` (bf16 at full width: the serving copy)."""
+    p = moe.init_moe(prng.prng_key(0), cfg, device=device)
     p = {k: v.to(cfg.cdtype) if k.startswith("moe_w") else v
          for k, v in p.items()}
     x = torch.randn((1, T, cfg.d_model), generator=gen, device=device)
@@ -3424,10 +3836,13 @@ def phase_layout():
 
 # -------------------------------------------------------------- ops phase
 # (case, B, Sq, Sk, H, K, hd, causal, window, softcap, dtype, atol, rtol,
-#  the one SDPA call that computes the same function: "is_causal" (top-left
-#  causal, the same when Sq = Sk), "full" (no mask: one right-aligned query
-#  sees every key), "mask" (an explicit boolean right-aligned causal
-#  attn_mask), or None)
+#  the one PyTorch call that computes the same function: SDPA with
+#  "is_causal" (top-left causal, the same when Sq = Sk), "full" (no mask:
+#  one right-aligned query sees every key) or "mask" (an explicit boolean
+#  right-aligned causal attn_mask); or "flex", a compiled
+#  `flex_attention` with the softcap as its score_mod and the
+#  right-aligned sliding-window causal mask as its block mask, timed after
+#  its compile)
 # A case holds |kernel - plain| <= atol * std(v) + rtol * |plain|
 # everywhere (attention_closeness): attention is linear in v, so atol is
 # stated for v of unit std, as the ops cases draw it, and a model's call
@@ -3445,11 +3860,11 @@ ATTENTION_CASES = (
     ("qwen3-8b/decode", 8, 1, 4096, 32, 8, 128, True, 0, 0.0,
      torch.bfloat16, *ATTN_BF16["decode"], "full"),
     ("gemma2-27b/local", 1, 8192, 8192, 32, 16, 128, True, 4096, 50.0,
-     torch.bfloat16, *ATTN_BF16["prefill"], None),  # SDPA has no softcap
+     torch.bfloat16, *ATTN_BF16["prefill"], "flex"),  # SDPA has no softcap
     ("qwen3-8b/fp32", 1, 1024, 1024, 32, 8, 128, True, 0, 0.0,
      torch.float32, 2e-5, 2e-5, "is_causal"),
     ("gemma2-27b/decode-local", 8, 1, 8192, 32, 16, 128, True, 4096, 50.0,
-     torch.bfloat16, *ATTN_BF16["decode"], None),   # SDPA has no softcap
+     torch.bfloat16, *ATTN_BF16["decode"], "flex"),  # SDPA has no softcap
     ("qwen3-8b/suffix4", 8, 4, 4096, 32, 8, 128, True, 0, 0.0,
      torch.bfloat16, *ATTN_BF16["decode"], "mask"),  # chunked decode
 )
@@ -3645,7 +4060,11 @@ def attention_row(a):
            "library_ms": None, "library_note": "none: SDPA has no softcap"}
     row["kernel_over_bound"] = ms_kernel / row["bound_ms"]
     how = a["sdpa"]
-    if how is not None:
+    if how == "flex":
+        row.update(flex_library(a, qf, kf, vf, out))
+        if row["library_ms"] is not None:
+            row["kernel_over_library"] = ms_kernel / row["library_ms"]
+    elif how is not None:
         q4, k4, v4 = (t.view(B, -1, t.shape[1], hd) for t in (qf, kf, vf))
         kw = {"is_causal": how == "is_causal"}
         if how == "mask":                     # right-aligned causal
@@ -3665,6 +4084,63 @@ def attention_row(a):
                                   f"is_causal={how == 'is_causal'}")
                                + ", enable_gqa=True)")
     return row
+
+
+def flex_library(a, qf, kf, vf, out):
+    """The time of one compiled `flex_attention` call on case `a`'s
+    inputs (softcap as score_mod, the sliding-window causal block mask,
+    enable_gqa), after its compile. Its output is held to the plain
+    version at the case's own limits first: if it falls outside them, or
+    cannot run here, library_ms is None and the note says why."""
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    kw = a["kw"]
+    B, Sq, _, hd = a["args"][0].shape
+    Sk, cap, window = kf.shape[1], kw["softcap"], kw["window"]
+    q4, k4, v4 = (t.view(B, -1, t.shape[1], hd) for t in (qf, kf, vf))
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        qpos = q_idx + (Sk - Sq)
+        keep = kv_idx <= qpos
+        if window > 0:
+            keep = keep & (kv_idx > qpos - window)
+        return keep
+    note = (f"flex_attention(score_mod=softcap {cap}, block_mask=causal "
+            f"window {window}, enable_gqa=True), torch.compile'd")
+    threads = inductor_config.compile_threads
+    inductor_config.compile_threads = 1          # no pool of compile workers
+    try:
+        mask = create_block_mask(mask_mod, None, None, Sq, Sk, device="cuda")
+        compiled = torch.compile(flex_attention)
+
+        def call():
+            return compiled(q4, k4, v4, score_mod=score_mod,
+                            block_mask=mask, enable_gqa=True)
+        t0 = time.perf_counter()
+        got = call().reshape(-1, Sq, hd)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        held = attention_closeness(a["case"], qf, kf, vf, got, kw,
+                                   a["atol"], a["rtol"])
+        row = {"library_note": note, "library_compile_s": compile_s,
+               "library_vs_plain": held,
+               "library_max_abs_diff": float(
+                   (got.float() - out.float()).abs().max())}
+        if not held["ok"]:
+            return {**row, "library_ms": None,
+                    "library_note": f"{note} is outside the case's limits "
+                                    f"against the plain version: {held}"}
+        return {**row, "library_ms": cuda_ms(call, launches=5, warmup=3)}
+    except Exception as e:           # the cell says why, in place of a time
+        return {"library_ms": None,
+                "library_note": f"{note} could not run: "
+                                f"{type(e).__name__}: {str(e)[:300]}"}
+    finally:
+        inductor_config.compile_threads = threads
 
 
 def scan_check(case, scan, out):
@@ -3803,9 +4279,14 @@ def main() -> int:
         phase_profile(db, wl, meta, params_from_numpy(tree))
     ops_launches, ops_rows = phase_ops(tree, db, wl, meta)
     phase_late_profiles(bwd_timing, trained, trajs, ablate_profiled)
+    rng_launches, rng_rows = phase_rng()
     lm_launches = phase_lm()
+    threefry.normal_launches = 0          # the builds of the next phases
     train_lm_launches = phase_train_lm()
+    train_lm_launches["threefry_normal"] = threefry.normal_launches
+    threefry.normal_launches = 0
     layout_launches = phase_layout()
+    layout_launches["threefry_normal"] = threefry.normal_launches
     summary = [{
         "name": "tree_cnn_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tree_cnn_fused.cu",
@@ -3848,6 +4329,16 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}, "case": case})
+    by_phase = {"rng": rng_launches["threefry_normal"],
+                "lm": lm_launches["threefry_normal"],
+                "train_lm": train_lm_launches["threefry_normal"],
+                "layout": layout_launches["threefry_normal"]}
+    normal_row, gumbel_row = rng_rows
+    summary += [{**normal_row, "launches": sum(by_phase.values()),
+                 "launches_by_phase": by_phase},
+                {**gumbel_row, "launches": lm_launches["threefry_gumbel"],
+                 "launches_by_phase": {
+                     "lm": lm_launches["threefry_gumbel"]}}]
     if any(r["launches"] == 0 for r in summary):
         raise AssertionError(f"a kernel of the path never launched: {summary}")
     emit({"kernels": summary})

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.core import prng
 from repro_torch.core.agent import resolve_device
 from repro_torch.models import lm
 from repro_torch.tree import leaves
@@ -27,8 +28,8 @@ def main():
     cfg = registry.reduced(registry.get_config("qwen3-8b"))
     print(f"arch: {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model})")
 
-    params = lm.init_params(torch.Generator(dev).manual_seed(0), cfg,
-                            device=dev)
+    # the reference's weights for jax.random.PRNGKey(0), drawn on `dev`
+    params = lm.init_params(prng.prng_key(0), cfg, device=dev)
     n = sum(x.numel() for x in leaves(params))
     print(f"params: {n/1e6:.2f}M")
 

@@ -19,11 +19,9 @@ Bits and uniforms are made on the host; `categorical` takes the Gumbel
 transform, the add and the argmax on the logits' device.
 
 `normal` is `jax.random.normal` (fp32), the reference's weight
-initialiser: sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1)), with
-XLA's CPU lowering of erf_inv (Giles' single-precision polynomial in
-w = -log1p(-x*x)) and of log1p (a Cephes rational for |x| < sqrt(2) - 1,
-else Cephes' logf of 1 + x), each multiply-add rounded once where the
-CPU backend fuses it into an FMA.
+initialiser, drawn on the CPU by the threefry kernel's plain version
+(`kernels/ref.py`, which holds XLA's CPU lowerings of erf_inv, log1p and
+log).
 """
 from __future__ import annotations
 
@@ -147,98 +145,15 @@ def cumsum(x, base: int = 16) -> np.ndarray:
     return (runs + carry[:, None]).reshape(-1)[:n]
 
 
-def _fma(a, b, c) -> np.ndarray:
-    """fp32 a * b + c rounded once (the fp32 product is exact in fp64)."""
-    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
-            + np.asarray(c, np.float64)).astype(np.float32)
-
-
-_F32 = np.float32
-# Cephes logf: the polynomial in x = m - 1 (its Horner split in three
-# interleaved chains, as XLA emits it), and ln 2 as q2 + q1
-_LOG_P = np.array([7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
-                   -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
-                   2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1],
-                  np.float32)
-_LN2_LO, _LN2_HI = _F32(-2.12194440e-4), _F32(0.693359375)
-_SQRT_HALF = _F32(0.707106781186547524)
-# Cephes log1p for |x| < sqrt(2) - 1: x - x^2/2 + x^3 P(x)/Q(x)
-_LOG1P_P = np.array([4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
-                     6.5787325942061044846969e0, 2.9911919328553073277375e1,
-                     6.0949667980987787057556e1, 5.7112963590585538103336e1,
-                     2.0039553499201281259648e1], np.float32)
-_LOG1P_Q = np.array([1.5062909083469192043167e1, 8.3047565967967209469434e1,
-                     2.2176239823732856465394e2, 3.0909872225312059774938e2,
-                     2.1642788614495947685003e2, 6.0118660497603843919306e1],
-                    np.float32)
-# Giles' erf_inv, for w < 5 (in w - 2.5) and w >= 5 (in sqrt(w) - 3)
-_ERFINV_LO = np.array([2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
-                       -4.39150654e-06, 0.00021858087, -0.00125372503,
-                       -0.00417768164, 0.246640727, 1.50140941], np.float32)
-_ERFINV_HI = np.array([-0.000200214257, 0.000100950558, 0.00134934322,
-                       -0.00367342844, 0.00573950773, -0.0076224613,
-                       0.00943887047, 1.00167406, 2.83297682], np.float32)
-
-
-def _logf(y: np.ndarray) -> np.ndarray:
-    """XLA's CPU fp32 log of y >= 0 (Cephes logf, FMAs where fused)."""
-    bits = np.maximum(y, _F32(2.0 ** -126)).view(np.uint32)
-    e = (((bits >> np.uint32(23)).astype(np.int32) - 127).astype(_F32)
-         + _F32(1))
-    m = ((bits & np.uint32(0x7FFFFF)) | np.uint32(0x3F000000)).view(_F32)
-    low = m < _SQRT_HALF
-    e = e - low.astype(_F32)
-    x = (m - _F32(1)) + np.where(low, m, _F32(0))
-    x2 = x * x
-    x3 = x2 * x
-    p = _LOG_P
-    a = _fma(_fma(x, p[0], p[1]), x, p[2])
-    b = _fma(_fma(x, p[3], p[4]), x, p[5])
-    c = _fma(_fma(x, p[6], p[7]), x, p[8])
-    a = _fma(_fma(_fma(a, x3, b), x3, c), x3, e * _LN2_LO)
-    out = _fma(e, _LN2_HI, _fma(x2, _F32(-0.5), x) + a)
-    out = np.where(y < 0, _F32(np.nan), out)
-    out = np.where(y == 0, _F32(-np.inf), out)
-    return np.where(y == np.inf, _F32(np.inf), out).astype(_F32)
-
-
-def _log1p(x: np.ndarray) -> np.ndarray:
-    """XLA's CPU fp32 log1p."""
-    x2 = x * x
-    num = np.full_like(x, _LOG1P_P[0])
-    for c in _LOG1P_P[1:]:
-        num = _fma(num, x, c)
-    den = np.ones_like(x)
-    for c in _LOG1P_Q:
-        den = _fma(den, x, c)
-    small = x + _fma(x2, _F32(-0.5), (x * x2) * (num / den))
-    return np.where(np.abs(x) < _F32(0.41421356237309504880), small,
-                    _logf(x + _F32(1))).astype(_F32)
-
-
-def erfinv32(x) -> np.ndarray:
-    """`jax.lax.erf_inv` of fp32 x in [-1, 1], as XLA's CPU backend
-    computes it."""
-    x = np.asarray(x, np.float32)
-    with np.errstate(divide="ignore", invalid="ignore"):   # at |x| = 1
-        return _erfinv32(x)
-
-
-def _erfinv32(x: np.ndarray) -> np.ndarray:
-    w = -_log1p(-(x * x))
-    lo = w < _F32(5)
-    t = np.where(lo, w - _F32(2.5), np.sqrt(w) - _F32(3)).astype(_F32)
-    p = np.where(lo, _ERFINV_LO[0], _ERFINV_HI[0])
-    for a, b in zip(_ERFINV_LO[1:], _ERFINV_HI[1:]):
-        p = _fma(p, t, np.where(lo, a, b))
-    return np.where(np.abs(x) == 1, x * _F32(np.inf), p * x).astype(_F32)
-
-
 def normal(key, shape=()) -> np.ndarray:
-    """`jax.random.normal(key, shape, float32)` for a uint32[2] key."""
-    lo = np.nextafter(_F32(-1), _F32(0))
-    return (_F32(np.sqrt(2)) * erfinv32(uniform(key, shape, lo, 1.0))
-            ).astype(_F32)
+    """`jax.random.normal(key, shape, float32)` for a uint32[2] key: the
+    threefry kernel's plain version (`kernels.ref.random_normal_ref`) on
+    the CPU."""
+    from repro_torch.kernels import threefry      # it imports this module
+    shape = tuple(shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    return threefry.normal(np.asarray(key, np.uint32), n,
+                           device="cpu").numpy().reshape(shape)
 
 
 def choice(key, n: int, p) -> int:

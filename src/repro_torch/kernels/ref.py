@@ -20,8 +20,11 @@ row, a negative index counts from the end).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import prng
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -245,3 +248,179 @@ def tree_conv_ref(feat, left, right, mask, wr, wl, wrt, b):
 
     return tree_conv_batch_ref(feat[None], rows(left), rows(right),
                                mask[None], wr, wl, wrt, b)[0]
+
+
+# ------------------------------------------------------------------ threefry
+# `jax.random` (jax 0.9.0, the partitionable Threefry-2x32 layout) on torch
+# tensors: the plain version of the threefry kernel (csrc/threefry.cu).
+# uint32 words live in int64 tensors, masked to 32 bits after every add and
+# shift. Keys are (*lead, 2) int64 stacks, one draw a key; element i of a
+# key's draw depends only on (key, i), so `offset` gives any slice alone.
+_M32 = 0xFFFFFFFF
+
+
+def threefry2x32_ref(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds, `core.prng`'s rotations) of counter
+    (x0, x1) under key (k0, k1), elementwise over broadcast int64 tensors
+    of uint32 values."""
+    ks = (k0, k1, k0 ^ k1 ^ int(prng._PARITY))
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in prng._ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def random_bits_ref(keys, n, offset=0):
+    """`jax.random.bits` (uint32, as int64): (*lead, n), elements
+    [offset, offset + n) of each key's flat draw. The counter of element i
+    is (i >> 32, i & 0xFFFFFFFF); the bits are the two output words xored."""
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=keys.device)
+    b0, b1 = threefry2x32_ref(keys[..., :1], keys[..., 1:], i >> 32, i & _M32)
+    return b0 ^ b1
+
+
+def _fma(a, b, c):
+    """fp32 a * b + c rounded once, as a fused multiply-add. The product
+    of two fp32 values is exact in fp64; the fp64 sum, cast to fp32, is
+    the FMA's result unless the sum was rounded onto an fp32 midpoint
+    (its low 29 bits 1000...0), where the cast would round a second time.
+    There the sum's rounding error (TwoSum) moves it one fp64 ulp towards
+    the exact value (the sum rounded to odd), and the cast rounds as the
+    FMA would. Results are in fp32's normal range here."""
+    p = a.double() * b
+    s = p + c
+    bits = s.view(torch.int64)
+    tie = (bits & 0x1FFFFFFF) == 0x10000000
+    if bool(tie.any()):
+        c = c.double() if torch.is_tensor(c) else c
+        bb = s - p
+        err = (p - (s - bb)) + (c - bb)
+        toward = torch.where((err > 0) == (s > 0), 1, -1)
+        s = torch.where(tie & (err != 0), bits + toward, bits).view(
+            torch.float64)
+    return s.float()
+
+
+def random_uniform_ref(keys, n, minval, maxval, offset=0):
+    """`jax.random.uniform(key, shape, float32, minval, maxval)`: the top
+    23 bits as the mantissa of a float in [1, 2), minus 1, then one FMA
+    by (maxval - minval) and minval (fp32 constants), then max(minval, .)."""
+    bits = random_bits_ref(keys, n, offset)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = np.float32(minval)
+    return torch.clamp_min(_fma(f, float(np.float32(maxval) - lo), float(lo)),
+                           float(lo))
+
+
+# XLA's CPU lowerings of log, log1p and erf_inv, with their fp32 constants.
+# Cephes logf: the polynomial in x = m - 1 (its Horner split in three
+# interleaved chains, as XLA emits it), and ln 2 as LN2_HI + LN2_LO
+_LOG_P = np.array([7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+                   -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+                   2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1],
+                  np.float32)
+_LN2_LO, _LN2_HI = np.float32(-2.12194440e-4), np.float32(0.693359375)
+_SQRT_HALF = np.float32(0.707106781186547524)
+# Cephes log1p for |x| < sqrt(2) - 1: x - x^2/2 + x^3 P(x)/Q(x)
+_LOG1P_P = np.array([4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+                     6.5787325942061044846969e0, 2.9911919328553073277375e1,
+                     6.0949667980987787057556e1, 5.7112963590585538103336e1,
+                     2.0039553499201281259648e1], np.float32)
+_LOG1P_Q = np.array([1.5062909083469192043167e1, 8.3047565967967209469434e1,
+                     2.2176239823732856465394e2, 3.0909872225312059774938e2,
+                     2.1642788614495947685003e2, 6.0118660497603843919306e1],
+                    np.float32)
+# Giles' erf_inv, for w < 5 (in w - 2.5) and w >= 5 (in sqrt(w) - 3)
+_ERFINV_LO = np.array([2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                       -4.39150654e-06, 0.00021858087, -0.00125372503,
+                       -0.00417768164, 0.246640727, 1.50140941], np.float32)
+_ERFINV_HI = np.array([-0.000200214257, 0.000100950558, 0.00134934322,
+                       -0.00367342844, 0.00573950773, -0.0076224613,
+                       0.00943887047, 1.00167406, 2.83297682], np.float32)
+
+
+def _c(v):
+    return float(np.float32(v))
+
+
+def _div(a, b):
+    """fp32 a / b correctly rounded: fp64's quotient rounded to fp32
+    (torch's own fp32 division and square root on the CPU may be a vector
+    library's, off by an ulp)."""
+    return (a.double() / b.double()).float()
+
+
+def _sqrt(x):
+    """fp32 sqrt(x) correctly rounded, through fp64 as `_div`."""
+    return torch.sqrt(x.double()).float()
+
+
+def logf_ref(y):
+    """XLA's CPU fp32 log of y (Cephes logf, FMAs where XLA fuses them)."""
+    bits = torch.clamp_min(y, 2.0 ** -126).view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    low = m < _c(_SQRT_HALF)
+    e = e - low.float()
+    x = (m - 1.0) + torch.where(low, m, 0.0)
+    x2 = x * x
+    x3 = x2 * x
+    p = [_c(v) for v in _LOG_P]
+    a = _fma(_fma(x, p[0], p[1]), x, p[2])
+    b = _fma(_fma(x, p[3], p[4]), x, p[5])
+    c = _fma(_fma(x, p[6], p[7]), x, p[8])
+    a = _fma(_fma(_fma(a, x3, b), x3, c), x3, e * _c(_LN2_LO))
+    out = _fma(e, _c(_LN2_HI), _fma(x2, -0.5, x) + a)
+    out = torch.where(y < 0, torch.nan, out)
+    out = torch.where(y == 0, -torch.inf, out)
+    return torch.where(y == torch.inf, torch.inf, out)
+
+
+def log1p_ref(x):
+    """XLA's CPU fp32 log1p."""
+    x2 = x * x
+    num = torch.full_like(x, _c(_LOG1P_P[0]))
+    for v in _LOG1P_P[1:]:
+        num = _fma(num, x, _c(v))
+    den = torch.ones_like(x)
+    for v in _LOG1P_Q:
+        den = _fma(den, x, _c(v))
+    small = x + _fma(x2, -0.5, (x * x2) * _div(num, den))
+    return torch.where(x.abs() < _c(0.41421356237309504880), small,
+                       logf_ref(x + 1.0))
+
+
+def erfinv32_ref(x):
+    """`jax.lax.erf_inv` of fp32 x in [-1, 1] as XLA's CPU backend
+    computes it (Giles' single-precision polynomials)."""
+    w = -log1p_ref(-(x * x))
+    lo = w < 5.0
+    t = torch.where(lo, w - 2.5, _sqrt(w) - 3.0)
+    p = torch.where(lo, _c(_ERFINV_LO[0]), _c(_ERFINV_HI[0]))
+    for a, b in zip(_ERFINV_LO[1:], _ERFINV_HI[1:]):
+        p = _fma(p, t, torch.where(lo, _c(a), _c(b)))
+    return torch.where(x.abs() == 1, x * torch.inf, p * x)
+
+
+NORMAL_LO = np.nextafter(np.float32(-1), np.float32(0))
+SQRT2 = _c(np.sqrt(2))
+
+
+def random_normal_ref(keys, n, offset=0, stddev=1.0):
+    """`stddev * jax.random.normal(key, shape, float32)`, elements
+    [offset, offset + n) of each key's flat draw: sqrt(2) *
+    erf_inv(uniform(nextafter(-1, 0), 1)), then the fp32 product by
+    stddev, two roundings as the reference's `normal_init` makes them."""
+    u = random_uniform_ref(keys, n, NORMAL_LO, 1.0, offset)
+    return (SQRT2 * erfinv32_ref(u)) * _c(stddev)
+
+
+def random_gumbel_ref(keys, n, offset=0):
+    """`jax.random.gumbel(key, shape, float32)` (mode "low"):
+    -log(-log(uniform(tiny, 1)))."""
+    return -logf_ref(-logf_ref(random_uniform_ref(keys, n, prng._TINY, 1.0,
+                                                  offset)))

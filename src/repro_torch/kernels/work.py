@@ -98,3 +98,44 @@ def tree_cnn_fused_bwd_work(B, N, F, H, nodes) -> Tuple[int, int]:
     weights = 3 * F * H + H + 2 * (3 * H * H + H)
     n_bytes = 4 * (B * N * F + 3 * B * N + B * H + 2 * weights)
     return n_bytes, 2 * nodes * H * (6 * F + 18 * H)
+
+
+# A draw of the threefry kernel, counted from its plain version
+# (`ref.random_normal_ref`, `ref.random_gumbel_ref`): (operations, of
+# them FMAs) of each part, one operation each for an integer or fp32 add,
+# multiply, FMA, divide, square root, negation, abs, compare, select,
+# shift, bitwise op, rotation, conversion and store. What depends on the
+# key alone (its third word, a word plus a round's constant) is not
+# counted. These are what the function needs; chip_smoke.py counts
+# beside them the instructions the compiled kernel issues.
+THREEFRY_PARTS = {
+    # the counter's add, the key's first injection (2), 20 rounds of add,
+    # rotation and xor, 5 injections of 2 adds, the output words' xor
+    "threefry": (74, 0),
+    # shift, or, minus 1, the FMA by (hi - lo) and lo, max
+    "uniform": (5, 1),
+    # Cephes logf: the exponent and mantissa split (17), its polynomial
+    # and ln 2 (11 FMAs), the three special cases (6)
+    "log": (34, 11),
+    # log1p's rational (12 FMAs), x^3 P/Q (3), the FMA by -1/2, the add,
+    # the |x| test and select, and 1 + x for its log (a "log" of its own)
+    "log1p": (22, 13),
+    # erf_inv around log1p: -(x * x), -w, w < 5, both t (4) and the
+    # select, Giles' 9 coefficients (9 selects, 8 FMAs), the |x| = 1 case
+    "erf_inv": (30, 8),
+    # normal: sqrt(2) * ., stddev * ., store; Gumbel: two negations, store
+    "tail": (3, 0),
+}
+THREEFRY_DRAW = {
+    kind: tuple(sum(THREEFRY_PARTS[p][i] for p in parts) for i in (0, 1))
+    for kind, parts in (
+        ("normal", ("threefry", "uniform", "log", "log1p", "erf_inv",
+                    "tail")),
+        ("gumbel", ("threefry", "uniform", "log", "log", "tail")))}
+
+
+def threefry_work(n, itemsize, *, gumbel=False) -> Tuple[int, int]:
+    """The threefry kernel's n draws: bytes (each output written once; the
+    keys are a few bytes) and operations (THREEFRY_DRAW's, an FMA as 2)."""
+    ops, fmas = THREEFRY_DRAW["gumbel" if gumbel else "normal"]
+    return n * itemsize, n * (ops + fmas)

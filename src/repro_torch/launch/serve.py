@@ -11,6 +11,12 @@ flash-attention kernel and a Mamba prefill through the scan kernel
 (`kernels.ops`); everything else is eager torch (no `torch.compile`, no
 CUDA graph). The server decodes from its serving copy of the weights
 (`lm.serving_params`), cast once.
+
+A seed gives the reference's server: its weights are
+`lm.init_params(prng_key(seed))`, the reference's bit for bit, and a
+sampled decode draws the reference's Gumbel noise from the same chain of
+`jax.random` keys (`kernels.threefry`: the kernel on the card, its plain
+version on the CPU).
 """
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.core import prng
 from repro_torch.core.agent import resolve_device
+from repro_torch.kernels import threefry
 from repro_torch.models import lm
 from repro_torch.tree import tree_map
 
@@ -33,8 +41,8 @@ class BatchedServer:
 
     `params`: the parameters (`lm.init_params`'s tree, e.g. a reference's
     carried across by `checkpoint.lm_params_from_numpy`), moved to the
-    device; without them, `lm.init_params` seeded from `seed` by a
-    `torch.Generator` on the device. The server keeps only their serving
+    device; without them, `lm.init_params(prng_key(seed))` on the device,
+    the reference server's weights. The server keeps only their serving
     copy (`serving`)."""
 
     def __init__(self, cfg, *, max_batch: int = 8, max_len: int = 512,
@@ -44,8 +52,8 @@ class BatchedServer:
         self.max_len = max_len
         self.device = resolve_device(device, "BatchedServer")
         if params is None:
-            gen = torch.Generator(self.device).manual_seed(seed)
-            params = lm.init_params(gen, cfg, device=self.device)
+            params = lm.init_params(prng.prng_key(seed), cfg,
+                                    device=self.device)
         self.serving = lm.serving_params(
             tree_map(lambda t: t.to(self.device), params), cfg)
 
@@ -58,8 +66,10 @@ class BatchedServer:
                  greedy: bool = True, seed: int = 0):
         """prompts: (B, P) int32. Returns ((B, gen_tokens) int32, stats):
         prefill and decode seconds (host clock, to a synchronize) and
-        generated tokens per decode second. `greedy=False` samples from a
-        `torch.Generator` seeded with `seed`."""
+        generated tokens per decode second. `greedy=False` samples as the
+        reference does: from key = prng_key(seed), each step splits
+        (key, k) = split(key) and takes `jax.random.categorical(k,
+        logits)` over the (B, V) logits."""
         cfg, dev, params = self.cfg, self.device, self.serving
         B, P = prompts.shape
         memory = None
@@ -78,7 +88,7 @@ class BatchedServer:
         self._sync()
         prefill_s = time.perf_counter() - t0
         out = torch.zeros((B, gen_tokens), dtype=torch.int64, device=dev)
-        gen = torch.Generator(dev).manual_seed(seed)
+        key = prng.prng_key(seed)
         tok = logits.argmax(-1)[:, None]
         t0 = time.perf_counter()
         for t in range(gen_tokens):
@@ -87,8 +97,8 @@ class BatchedServer:
             if greedy:
                 tok = logits.argmax(-1)[:, None]
             else:
-                tok = torch.multinomial(torch.softmax(logits, -1), 1,
-                                        generator=gen)
+                key, k = prng.split(key)
+                tok = threefry.categorical(k, logits)[:, None]
         self._sync()
         decode_s = time.perf_counter() - t0
         return out.cpu().numpy().astype(np.int32), {

@@ -24,10 +24,11 @@ import torch
 from typing import Any, Dict, Tuple
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core import prng
 from repro_torch.models import lm
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_schedule)
-from repro_torch.tree import flatten, unflatten
+from repro_torch.tree import flatten, tree_map, unflatten
 
 
 def loss_and_grads(params, batch, cfg):
@@ -108,12 +109,16 @@ def batch_struct(cfg: ModelConfig, shape: ShapeConfig,
 
 
 def params_struct(cfg: ModelConfig, device=META):
-    return lm.init_params(None, cfg, device=device)
+    """The parameters of `jax.random.PRNGKey(0)`; on `meta`, no data."""
+    return lm.init_params(prng.prng_key(0), cfg, device=device)
 
 
 def opt_struct(cfg: ModelConfig, device=META):
-    return adamw_init(params_struct(cfg, device),
-                      getattr(torch, cfg.opt_moment_dtype))
+    """AdamW's zero state, shaped by a build on `meta` (nothing drawn)."""
+    state = adamw_init(params_struct(cfg),
+                       getattr(torch, cfg.opt_moment_dtype))
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                          device=device), state)
 
 
 def cache_struct(cfg: ModelConfig, shape: ShapeConfig, device=META):

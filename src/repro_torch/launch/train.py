@@ -14,9 +14,10 @@ forward and remat recompute (`kernels.ops`).
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b --smoke \\
       --steps 50 --batch 8 --seq 256 --ckpt-dir /tmp/ckpt [--device cpu]
 
-The initial weights come from `lm.init_params` seeded by a
-`torch.Generator` on the device, not from `jax.random`: the parity tests
-carry the reference's weights across instead.
+The initial weights are the reference's: `lm.init_params(prng_key(seed))`
+draws `jax.random`'s numbers on the device (through the threefry kernel
+on the card), and the data pipeline is the reference's, so a seed starts
+the reference's run.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import registry
+from repro_torch.core import prng
 from repro_torch.core.agent import resolve_device
 from repro_torch.data import SyntheticLMPipeline
 from repro_torch.launch.steps import loss_and_grads
@@ -80,8 +82,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     dev = resolve_device(device, "train")
     opt_cfg = AdamWConfig(lr=lr)
 
-    gen = torch.Generator(dev).manual_seed(seed)
-    params = lm.init_params(gen, cfg, device=dev)
+    params = lm.init_params(prng.prng_key(seed), cfg, device=dev)
     opt_state = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
     err_state = tree_map(
         lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev),

@@ -47,7 +47,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_dense, apply_norm, apply_rope,
-                                       init_dense, init_norm, softcap)
+                                       init_dense, init_norm, softcap,
+                                       split_keys)
 from repro_torch.sharding import act as act_sharding
 
 DENSE_KV_THRESHOLD = 2048   # Skv above this and Sq > 1 -> blockwise path
@@ -159,17 +160,19 @@ def mha(q, k, v, *, qpos, kpos, kind="causal", window=4096, chunk=8192,
 
 
 # ------------------------------------------------------------------ GQA module
-def init_attention(gen, cfg, spec, *, lead=(), device):
+def init_attention(key, cfg, spec, *, device):
+    ks = split_keys(key, 8)
+    lead = ks[0].shape[:-1]
     H, K, hd, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
-    kw = dict(lead=lead, device=device)
+    kw = dict(device=device)
     p = {}
-    p.update(init_dense(gen, D, H * hd, cfg.pdtype, bias=cfg.qkv_bias,
+    p.update(init_dense(ks[0], D, H * hd, cfg.pdtype, bias=cfg.qkv_bias,
                         name="wq", **kw))
-    p.update(init_dense(gen, D, K * hd, cfg.pdtype, bias=cfg.qkv_bias,
+    p.update(init_dense(ks[1], D, K * hd, cfg.pdtype, bias=cfg.qkv_bias,
                         name="wk", **kw))
-    p.update(init_dense(gen, D, K * hd, cfg.pdtype, bias=cfg.qkv_bias,
+    p.update(init_dense(ks[2], D, K * hd, cfg.pdtype, bias=cfg.qkv_bias,
                         name="wv", **kw))
-    p.update(init_dense(gen, H * hd, D, cfg.pdtype, name="wo", **kw))
+    p.update(init_dense(ks[3], H * hd, D, cfg.pdtype, name="wo", **kw))
     if cfg.qk_norm:
         p["qnorm"] = init_norm((*lead, hd), "rmsnorm", cfg.pdtype,
                                device=device)
@@ -255,25 +258,28 @@ def apply_attention(p, x, cfg, spec, *, positions, cache=None, memory=None):
 
 
 # ------------------------------------------------------------------ MLA
-def init_mla(gen, cfg, *, lead=(), device):
+def init_mla(key, cfg, *, device):
     m = cfg.mla
+    ks = split_keys(key, 8)
+    lead = ks[0].shape[:-1]
     D, H = cfg.d_model, cfg.n_heads
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
-    kw = dict(lead=lead, device=device)
+    kw = dict(device=device)
     p = {}
-    p.update(init_dense(gen, D, m.q_lora_rank, cfg.pdtype, name="wq_a", **kw))
+    p.update(init_dense(ks[0], D, m.q_lora_rank, cfg.pdtype, name="wq_a",
+                        **kw))
     p["q_a_norm"] = init_norm((*lead, m.q_lora_rank), "rmsnorm", cfg.pdtype,
                               device=device)
-    p.update(init_dense(gen, m.q_lora_rank, H * qk_dim, cfg.pdtype,
+    p.update(init_dense(ks[1], m.q_lora_rank, H * qk_dim, cfg.pdtype,
                         name="wq_b", **kw))
-    p.update(init_dense(gen, D, m.kv_lora_rank + m.qk_rope_head_dim,
+    p.update(init_dense(ks[2], D, m.kv_lora_rank + m.qk_rope_head_dim,
                         cfg.pdtype, name="wkv_a", **kw))
     p["kv_a_norm"] = init_norm((*lead, m.kv_lora_rank), "rmsnorm", cfg.pdtype,
                                device=device)
-    p.update(init_dense(gen, m.kv_lora_rank,
+    p.update(init_dense(ks[3], m.kv_lora_rank,
                         H * (m.qk_nope_head_dim + m.v_head_dim), cfg.pdtype,
                         name="wkv_b", **kw))
-    p.update(init_dense(gen, H * m.v_head_dim, D, cfg.pdtype, name="wo",
+    p.update(init_dense(ks[4], H * m.v_head_dim, D, cfg.pdtype, name="wo",
                         **kw))
     return p
 

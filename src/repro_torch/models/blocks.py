@@ -33,10 +33,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.core import prng
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import apply_norm, init_norm, scaled
+from repro_torch.models.common import (apply_norm, init_norm, scaled,
+                                       split_keys)
 from repro_torch.sharding import act as act_sharding
 from repro_torch.tree import tree_map
 
@@ -51,8 +53,10 @@ def _residual_scale(cfg):
 
 
 # ------------------------------------------------------------------ one layer
-def init_layer(gen, cfg, spec, *, lead=(), device):
-    kw = dict(lead=lead, device=device)
+def init_layer(key, cfg, spec, *, device):
+    ks = split_keys(key, 4)
+    lead = ks[0].shape[:-1]
+    kw = dict(device=device)
 
     def norm():
         return init_norm((*lead, cfg.d_model), cfg.norm, cfg.pdtype,
@@ -64,15 +68,15 @@ def init_layer(gen, cfg, spec, *, lead=(), device):
         p["postnorm1"] = norm()
         p["postnorm2"] = norm()
     if spec.mixer == "mamba":
-        p["mixer"] = mamba_mod.init_mamba(gen, cfg, **kw)
+        p["mixer"] = mamba_mod.init_mamba(ks[0], cfg, **kw)
     elif cfg.mla is not None and spec.mixer != "cross_attn":
-        p["mixer"] = attn_mod.init_mla(gen, cfg, **kw)
+        p["mixer"] = attn_mod.init_mla(ks[0], cfg, **kw)
     else:
-        p["mixer"] = attn_mod.init_attention(gen, cfg, spec, **kw)
+        p["mixer"] = attn_mod.init_attention(ks[0], cfg, spec, **kw)
     if spec.ffn == "mlp":
-        p["ffn"] = moe_mod.init_mlp(gen, cfg, **kw)
+        p["ffn"] = moe_mod.init_mlp(ks[1], cfg, **kw)
     elif spec.ffn == "moe":
-        p["ffn"] = moe_mod.init_moe(gen, cfg, **kw)
+        p["ffn"] = moe_mod.init_moe(ks[1], cfg, **kw)
     return p
 
 
@@ -110,8 +114,9 @@ def apply_layer(p, x, cfg, spec, *, positions, cache=None, memory=None):
 
 
 # ------------------------------------------------------------------ superblock
-def init_superblock(gen, cfg, *, lead=(), device):
-    return {f"layer{i}": init_layer(gen, cfg, spec, lead=lead, device=device)
+def init_superblock(key, cfg, *, device):
+    ks = split_keys(key, len(cfg.block_pattern))
+    return {f"layer{i}": init_layer(ks[i], cfg, spec, device=device)
             for i, spec in enumerate(cfg.block_pattern)}
 
 
@@ -128,9 +133,12 @@ def apply_superblock(p, x, cfg, *, positions, cache=None, memory=None):
 
 
 # ------------------------------------------------------------------ the stack
-def init_stack(gen, cfg, *, device):
-    """Every leaf stacked on a leading (n_superblocks,) axis."""
-    return init_superblock(gen, cfg, lead=(cfg.n_superblocks,), device=device)
+def init_stack(key, cfg, *, device):
+    """Every leaf stacked on a leading (n_superblocks,) axis: superblock i
+    from the i-th of `key` split n_superblocks ways, as the reference's
+    vmapped init."""
+    return init_superblock(prng.split(key, cfg.n_superblocks), cfg,
+                           device=device)
 
 
 def superblock(tree, i: int):

@@ -1,27 +1,43 @@
 """Shared model primitives: norms, RoPE, activations, initializers.
 
 Functional, as the reference's `repro.models.common`: every module is an
-``init_*(gen, ...) -> params`` (a dict of tensors) plus an ``apply`` that
+``init_*(key, ...) -> params`` (a dict of tensors) plus an ``apply`` that
 takes the params dict. Norm math runs in fp32 regardless of compute dtype.
 
-Initializers draw from an explicit `torch.Generator` with the reference's
-distributions (``normal_init`` is stddev * N(0, 1) in fp32, then cast).
-The draws are not `jax.random`'s: tests carry the reference's weights
-across (`checkpoint.lm_params_from_numpy`). Every initializer takes `lead`,
-the leading axes its tensors are stacked on (the superblock axis), and on
-the ``meta`` device draws nothing.
+Initializers take the reference's `jax.random` keys as uint32 numpy
+arrays (`core.prng`): a key is (2,), or a (*lead, 2) stack of keys whose
+leading axes (the superblock axis) every tensor of the initializer is
+stacked on, as the reference's vmapped `init_stack` stacks them.
+`split_keys` splits each key of a stack, and `normal_init` draws
+``stddev * jax.random.normal(key, shape, float32)`` cast to `dtype`, bit
+for bit the reference's, on the leaf's device: through the threefry
+kernel on the card, its plain version on the CPU, nothing on ``meta``.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
+from repro_torch.kernels import threefry
 
-def normal_init(gen, shape, dtype, stddev=0.02, *, device):
-    t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    if t.device.type != "meta":
-        t.normal_(generator=gen).mul_(stddev)
-    return t.to(dtype)
+
+def normal_init(key, shape, dtype, stddev=0.02, *, device):
+    """(*lead, *shape) for a (*lead, 2) stack of keys."""
+    key = np.asarray(key, np.uint32)
+    out = threefry.normal(key, math.prod(shape), stddev=stddev, dtype=dtype,
+                          device=device)
+    return out.view(*key.shape[:-1], *shape)
+
+
+def split_keys(key, n):
+    """`jax.random.split(key, n)` as a list of n keys, each of a stack's
+    own shape (*lead, 2)."""
+    ks = prng.split(key, n)
+    return [ks[..., i, :] for i in range(n)]
 
 
 # ---------------------------------------------------------------- norms
@@ -98,13 +114,12 @@ def scaled(x, s: float):
 
 
 # ---------------------------------------------------------------- dense
-def init_dense(gen, d_in, d_out, dtype, bias=False, stddev=0.02, name="w", *,
-               lead=(), device):
-    p = {name: normal_init(gen, (*lead, d_in, d_out), dtype, stddev,
-                           device=device)}
+def init_dense(key, d_in, d_out, dtype, bias=False, stddev=0.02, name="w",
+               *, device):
+    p = {name: normal_init(key, (d_in, d_out), dtype, stddev, device=device)}
     if bias:
-        p[name + "_bias"] = torch.zeros((*lead, d_out), dtype=dtype,
-                                        device=device)
+        p[name + "_bias"] = torch.zeros((*np.shape(key)[:-1], d_out),
+                                        dtype=dtype, device=device)
     return p
 
 

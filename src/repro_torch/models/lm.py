@@ -2,7 +2,7 @@
 
 The reference's functional API (`repro.models.lm`):
 
-  init_params(gen, cfg, device=...)        -> params tree (dict of tensors)
+  init_params(key, cfg, device=...)        -> params tree (dict of tensors)
   forward(params, tokens, cfg, ...)        -> (logits, cache, aux)
   loss_fn(params, batch, cfg)              -> (scalar, metrics)
   init_cache(cfg, batch, max_len, device)  -> decode cache tree (stacked per
@@ -42,9 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import prng
 from repro_torch.models import blocks
 from repro_torch.models.common import (apply_norm, init_norm, normal_init,
-                                       scaled, softcap)
+                                       scaled, softcap, split_keys)
 from repro_torch.sharding import act as act_sharding
 
 # leaf names the reference casts to cfg.cdtype wherever it reads them
@@ -58,28 +59,37 @@ SERVING_CAST = frozenset({
 
 
 # ------------------------------------------------------------------ init
-def init_params(gen, cfg, *, device):
-    """Seeded parameters from the generator `gen` (None on "meta")."""
+def init_params(key, cfg, *, device):
+    """The reference's parameters from the uint32[2] key `key`
+    (`core.prng.prng_key(seed)` for `jax.random.PRNGKey(seed)`), bit for
+    bit: the same splits, each leaf drawn on `device`. On "meta" the key
+    may be None: nothing is drawn."""
+    if key is None:
+        if torch.device(device).type != "meta":
+            raise ValueError("init_params needs a key off the meta device")
+        key = prng.prng_key(0)
+    ks = split_keys(key, 6)
     kw = dict(device=device)
     p = {
-        "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), cfg.pdtype,
+        "embed": normal_init(ks[0], (cfg.vocab_size, cfg.d_model), cfg.pdtype,
                              **kw),
-        "stack": blocks.init_stack(gen, cfg, **kw),
+        "stack": blocks.init_stack(ks[1], cfg, **kw),
         "final_norm": init_norm((cfg.d_model,), cfg.norm, cfg.pdtype, **kw),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = normal_init(gen, (cfg.d_model, cfg.vocab_size),
+        p["lm_head"] = normal_init(ks[2], (cfg.d_model, cfg.vocab_size),
                                    cfg.pdtype, **kw)
     if cfg.learned_pos_emb:
-        p["pos_embed"] = normal_init(gen, (cfg.max_decoder_len, cfg.d_model),
+        p["pos_embed"] = normal_init(ks[3], (cfg.max_decoder_len, cfg.d_model),
                                      cfg.pdtype, **kw)
     if cfg.encoder is not None:
         enc_cfg = cfg.encoder_cfg()
         p["encoder"] = {
-            "stack": blocks.init_stack(gen, enc_cfg, **kw),
+            "stack": blocks.init_stack(ks[4], enc_cfg, **kw),
             "final_norm": init_norm((cfg.d_model,), cfg.norm, cfg.pdtype,
                                     **kw),
-            "pos_embed": normal_init(gen, (cfg.encoder.n_frames, cfg.d_model),
+            "pos_embed": normal_init(ks[5],
+                                     (cfg.encoder.n_frames, cfg.d_model),
                                      cfg.pdtype, **kw),
         }
     return p

@@ -12,38 +12,39 @@ ssm_state), in torch ops. A cache is updated in place.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
-from repro_torch.models.common import apply_dense, init_dense, normal_init
+from repro_torch.kernels import ops, ref
+from repro_torch.models.common import (apply_dense, init_dense, normal_init,
+                                       split_keys)
 
 
-def init_mamba(gen, cfg, *, lead=(), device):
+def init_mamba(key, cfg, *, device):
     s = cfg.ssm
+    ks = split_keys(key, 8)
+    lead = ks[0].shape[:-1]
     D, di, N, R = cfg.d_model, cfg.d_inner, s.d_state, cfg.dt_rank
-    kw = dict(lead=lead, device=device)
+    kw = dict(device=device)
     p = {}
-    p.update(init_dense(gen, D, 2 * di, cfg.pdtype, name="mamba_in", **kw))
-    p["mamba_conv_w"] = normal_init(gen, (*lead, s.d_conv, di), cfg.pdtype,
-                                    0.1, device=device)
+    p.update(init_dense(ks[0], D, 2 * di, cfg.pdtype, name="mamba_in", **kw))
+    p["mamba_conv_w"] = normal_init(ks[1], (s.d_conv, di), cfg.pdtype, 0.1,
+                                    **kw)
     p["mamba_conv_b"] = torch.zeros((*lead, di), dtype=cfg.pdtype,
                                     device=device)
-    p.update(init_dense(gen, di, R + 2 * N, cfg.pdtype, name="mamba_xproj",
+    p.update(init_dense(ks[2], di, R + 2 * N, cfg.pdtype, name="mamba_xproj",
                         **kw))
-    p.update(init_dense(gen, R, di, cfg.pdtype, bias=True,
+    p.update(init_dense(ks[3], R, di, cfg.pdtype, bias=True,
                         name="mamba_dtproj", **kw))
-    # S4D-real init for A: A_log = log(1..N) rows broadcast over d_inner
-    a_log = torch.tensor([math.log(n) for n in range(1, N + 1)],
-                         dtype=torch.float32)
+    # S4D-real init for A: A_log = log(1..N) rows broadcast over d_inner,
+    # with the reference's fp32 log (XLA's, which is not correctly rounded)
+    a_log = ref.logf_ref(torch.arange(1, N + 1, dtype=torch.float32))
     p["mamba_A_log"] = torch.empty((*lead, di, N), dtype=torch.float32,
                                    device=device)
     if p["mamba_A_log"].device.type != "meta":
         p["mamba_A_log"].copy_(a_log.expand(*lead, di, N))
     p["mamba_D"] = torch.ones((*lead, di), dtype=torch.float32, device=device)
-    p.update(init_dense(gen, di, D, cfg.pdtype, name="mamba_out", **kw))
+    p.update(init_dense(ks[4], di, D, cfg.pdtype, name="mamba_out", **kw))
     return p
 
 

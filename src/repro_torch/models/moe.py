@@ -22,20 +22,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (act_fn, apply_dense, init_dense,
-                                       normal_init)
+                                       normal_init, split_keys)
 from repro_torch.sharding import act as act_sharding
 
 LOCAL_BLOCKS = 32      # the block-local dispatch's blocks (>= dp x pod)
 
 
 # ------------------------------------------------------------------ dense MLP
-def init_mlp(gen, cfg, d_ff=None, *, lead=(), device):
+def init_mlp(key, cfg, d_ff=None, *, device):
+    ks = split_keys(key, 3)
     D, Fd = cfg.d_model, (d_ff or cfg.d_ff)
-    kw = dict(lead=lead, device=device)
+    kw = dict(device=device)
     p = {}
-    p.update(init_dense(gen, D, Fd, cfg.pdtype, name="w_gate", **kw))
-    p.update(init_dense(gen, D, Fd, cfg.pdtype, name="w_up", **kw))
-    p.update(init_dense(gen, Fd, D, cfg.pdtype, name="w_down", **kw))
+    p.update(init_dense(ks[0], D, Fd, cfg.pdtype, name="w_gate", **kw))
+    p.update(init_dense(ks[1], D, Fd, cfg.pdtype, name="w_up", **kw))
+    p.update(init_dense(ks[2], Fd, D, cfg.pdtype, name="w_down", **kw))
     return p
 
 
@@ -47,18 +48,19 @@ def apply_mlp(p, x, cfg):
 
 
 # ------------------------------------------------------------------ MoE
-def init_moe(gen, cfg, *, lead=(), device):
+def init_moe(key, cfg, *, device):
     m = cfg.moe
+    ks = split_keys(key, 5)
     D, Fd, E = cfg.d_model, cfg.moe_d_ff, m.n_experts
     kw = dict(device=device)
     p = {
-        "router": normal_init(gen, (*lead, D, E), torch.float32, 0.02, **kw),
-        "moe_wg": normal_init(gen, (*lead, E, D, Fd), cfg.pdtype, **kw),
-        "moe_wu": normal_init(gen, (*lead, E, D, Fd), cfg.pdtype, **kw),
-        "moe_wd": normal_init(gen, (*lead, E, Fd, D), cfg.pdtype, **kw),
+        "router": normal_init(ks[0], (D, E), torch.float32, 0.02, **kw),
+        "moe_wg": normal_init(ks[1], (E, D, Fd), cfg.pdtype, **kw),
+        "moe_wu": normal_init(ks[2], (E, D, Fd), cfg.pdtype, **kw),
+        "moe_wd": normal_init(ks[3], (E, Fd, D), cfg.pdtype, **kw),
     }
     if m.shared_expert_ff:
-        p["shared"] = init_mlp(gen, cfg, d_ff=m.shared_expert_ff, lead=lead,
+        p["shared"] = init_mlp(ks[4], cfg, d_ff=m.shared_expert_ff,
                                device=device)
     return p
 

@@ -31,8 +31,6 @@ from repro_torch.kernels import (flash_attention, mamba_scan,  # noqa: E402
                                  tree_conv, work)
 from repro_torch.launch import dryrun, opanalysis, steps  # noqa: E402
 from repro_torch.launch import roofline as rl  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
-from repro_torch.optim import adamw_init  # noqa: E402
 
 SMALL = {"train": ShapeConfig("train_small", 32, 2, "train"),
          "prefill": ShapeConfig("prefill_small", 32, 2, "prefill"),
@@ -105,13 +103,8 @@ def test_loop_of_layers_counts_each_trip(dev):
 
 
 def count(cfg, shape, dev):
-    ins = list(steps.input_specs(cfg, shape, dev))
-    if dev == "cpu":
-        ins[0] = lm.init_params(torch.Generator().manual_seed(0), cfg,
-                                device="cpu")
-        if shape.kind == "train":
-            ins[1] = adamw_init(ins[0], getattr(torch, cfg.opt_moment_dtype))
-    counter, mem, _ = dryrun.count_step(cfg, shape, inputs=tuple(ins))
+    ins = steps.input_specs(cfg, shape, dev)
+    counter, mem, _ = dryrun.count_step(cfg, shape, inputs=ins)
     return counter, mem
 
 

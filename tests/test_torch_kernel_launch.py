@@ -815,8 +815,7 @@ def test_lm_serves_through_the_kernels(cuda, arch, dtype, tol,
         eidx = routes.pop(0).to(probs.device)
         gate = probs.gather(-1, eidx)
         return gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), eidx
-    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
-                            device="cpu")
+    params = lm.init_params(prng.prng_key(0), cfg, device="cpu")
     prompts = np.random.default_rng(0).integers(
         2, cfg.vocab_size, (2, 16)).astype(np.int32)
     attn, mamba = _kernel_layers(cfg)
@@ -877,8 +876,7 @@ def test_lm_trains_through_the_kernels(cuda, arch):
     from repro_torch.tree import flatten, tree_map
     cfg = dataclasses.replace(registry.reduced(registry.get_config(arch)),
                               compute_dtype="float32")
-    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
-                            device="cpu")
+    params = lm.init_params(prng.prng_key(0), cfg, device="cpu")
     rng = np.random.default_rng(0)
     toks = rng.integers(2, cfg.vocab_size, (2, 32)).astype(np.int32)
     attn, mamba = _kernel_layers(cfg)
@@ -924,8 +922,7 @@ def test_counted_step_on_card_equals_meta(cuda, arch):
     cfg = registry.reduced(registry.get_config(arch))
     shape = ShapeConfig("train_small", 32, 2, "train")
     meta, _, _ = dryrun.count_step(cfg, shape)
-    params = lm.init_params(torch.Generator(cuda).manual_seed(0), cfg,
-                            device=cuda)
+    params = lm.init_params(prng.prng_key(0), cfg, device=cuda)
     opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
     batch = {"tokens": torch.zeros((2, 32), dtype=torch.int32, device=cuda)}
     fa0, ms0 = fa.launches, ms.launches
@@ -945,8 +942,7 @@ def test_remat_modes_on_the_card(cuda):
     outputs), launching the attention kernel twice, twice and once a
     layer."""
     cfg = registry.reduced(registry.get_config("qwen3-8b"))
-    params = lm.init_params(torch.Generator(cuda).manual_seed(0), cfg,
-                            device=cuda)
+    params = lm.init_params(prng.prng_key(0), cfg, device=cuda)
     toks = torch.randint(2, cfg.vocab_size, (2, 32), device=cuda,
                          generator=torch.Generator(cuda).manual_seed(1))
     layers = cfg.n_layers
@@ -963,3 +959,78 @@ def test_remat_modes_on_the_card(cuda):
         for (path, a), (_, b) in zip(out["full"][1], out[mode][1]):
             assert float((a - b).abs().max()) <= \
                 1e-5 * float(a.abs().max()), (mode, path)
+
+
+# ------------------------------------------------------ the threefry kernel
+from repro_torch.kernels import threefry  # noqa: E402
+
+
+def _words(t):
+    t = t.cpu()
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("lead, n, offset", [((), 1, 0), ((), 4097, 0),
+                                             ((3,), 1001, 0),
+                                             ((2, 3), 777, 5),
+                                             ((), 300, (1 << 32) - 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_threefry_normal_equals_plain(cuda, lead, n, offset, dtype):
+    """The kernel's draws equal the plain version's (which the CPU tests
+    hold to jax.random.normal) bit for bit: stacks of keys, a stddev, bf16
+    output, offsets, a counter past 2^32; one launch a call."""
+    keys = prng.split(prng.prng_key(5), int(np.prod(lead, dtype=int)))
+    keys = keys.reshape(*lead, 2) if lead else keys[0]
+    before = threefry.normal_launches
+    got = threefry.normal(keys, n, stddev=0.1, dtype=dtype, device=cuda,
+                          offset=offset)
+    torch.cuda.synchronize()
+    assert threefry.normal_launches - before == 1
+    want = threefry.normal(keys, n, stddev=0.1, dtype=dtype, device="cpu",
+                           offset=offset)
+    assert got.shape == want.shape == (*lead, n) and got.dtype == dtype
+    assert torch.equal(_words(got), _words(want))
+
+
+@pytest.mark.parametrize("lead, n", [((), 151936), ((4,), 513)])
+def test_threefry_gumbel_equals_plain(cuda, lead, n):
+    keys = prng.split(prng.prng_key(9), 4)
+    keys = keys if lead else keys[1]
+    before = threefry.gumbel_launches
+    got = threefry.gumbel(keys, n, device=cuda)
+    torch.cuda.synchronize()
+    assert threefry.gumbel_launches - before == 1
+    want = threefry.gumbel(keys, n, device="cpu")
+    assert torch.equal(_words(got), _words(want))
+    logits = torch.randn((8, 1001), generator=torch.Generator().manual_seed(0))
+    key = prng.split(prng.prng_key(2))[1]
+    assert torch.equal(threefry.categorical(key, logits.to(cuda)).cpu(),
+                       threefry.categorical(key, logits))
+
+
+def test_threefry_refuses_what_it_does_not_draw(cuda):
+    with pytest.raises(TypeError):
+        threefry.normal(prng.prng_key(0), 8, dtype=torch.float16,
+                        device=cuda)
+    with pytest.raises(ValueError):
+        threefry.normal(np.zeros(2, np.int64), 8, device=cuda)
+    before = threefry.normal_launches
+    assert threefry.normal(prng.prng_key(0), 8, device="meta").shape == (8,)
+    assert threefry.normal_launches == before
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "jamba-1.5-large-398b",
+                                  "whisper-tiny", "minicpm3-4b"])
+def test_seeded_init_on_the_card_equals_the_cpu(cuda, arch):
+    """A reduced arch's `init_params(prng_key(7))` on the card (the
+    kernel, one launch a drawn leaf) equals the CPU's (the plain version)
+    leaf for leaf, bit for bit."""
+    from repro_torch.tree import flatten
+    cfg = registry.reduced(registry.get_config(arch))
+    before = threefry.normal_launches
+    card = flatten(lm.init_params(prng.prng_key(7), cfg, device=cuda))
+    torch.cuda.synchronize()
+    assert threefry.normal_launches > before
+    cpu = flatten(lm.init_params(prng.prng_key(7), cfg, device="cpu"))
+    for (path, a), (_, b) in zip(card, cpu):
+        assert a.dtype == b.dtype and torch.equal(_words(a), _words(b)), path

@@ -56,6 +56,7 @@ from repro.optim import compress as jcompress  # noqa: E402
 from repro.sharding import act as jact  # noqa: E402
 from repro_torch.adapt import knobs, search  # noqa: E402
 from repro_torch.checkpoint import lm_params_from_numpy  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.models import attention, lm, moe  # noqa: E402
@@ -389,7 +390,7 @@ def test_moe_shard_map_emulation_matches_numpy_body():
     tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe,
                                                              n_experts=8))
     gen = torch.Generator().manual_seed(0)
-    p = moe.init_moe(gen, tcfg, device="cpu")
+    p = moe.init_moe(prng.prng_key(0), tcfg, device="cpu")
     T, D = 16, tcfg.d_model
     xt = torch.randn((T, D), generator=gen)
     probs = torch.softmax(xt @ p["router"], -1)

@@ -4,19 +4,20 @@
   field-equal to the reference's, and `param_count` (the port counts a
   meta-device init, the reference a `jax.eval_shape` of its init) and
   `active_param_count` are equal for all ten.
-* The port's seeded init: deterministic in its seed, the reference's
-  shapes and dtypes leaf for leaf, normal draws of the reference's
-  standard deviations.
+* The port's seeded init: the reference's shapes and dtypes leaf for
+  leaf, and the reference's `init_params(PRNGKey(seed))` bit for bit
+  (tests/test_torch_lm_init.py holds all ten archs at two seeds).
 * The serving copy (`lm.serving_params`) casts exactly the leaves the
   reference casts at use and gives the same logits as the parameters it
   was cast from.
-* `BatchedServer.generate` on reduced qwen3-8b and falcon-mamba-7b gives
-  the reference server's greedy tokens, from the reference server's
-  weights carried across, with compute_dtype="float32": in the configs'
-  own bf16 the two frameworks round differently and, with random
-  weights, a near-tie between the top two logits flips (reduced qwen3-8b
-  does so at a row's 4th token); tests/test_torch_lm_bf16.py holds the
-  bf16 logits and tokens wherever the margin allows.
+* `BatchedServer(seed=0)` on reduced qwen3-8b and falcon-mamba-7b, from
+  its seed alone, gives the reference server's greedy tokens and its
+  sampled tokens (`greedy=False, seed=1`: the same `jax.random` keys and
+  Gumbel noise), with compute_dtype="float32": in the configs' own bf16
+  the two frameworks round differently and, with random weights, a
+  near-tie between the top two logits flips (reduced qwen3-8b does so at
+  a row's 4th token); tests/test_torch_lm_bf16.py holds the bf16 logits
+  and tokens wherever the margin allows.
 * `BatchedServer` without a device asks for CUDA and raises without it.
 """
 import dataclasses
@@ -32,11 +33,23 @@ from repro.configs import base as jbase  # noqa: E402
 from repro.configs import registry as jregistry  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
-from repro_torch.checkpoint import lm_params_from_numpy  # noqa: E402
 from repro_torch.configs import base, registry  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on one host, and
+    with torch's default threads in each, the seeded init's plain
+    `jax.random` (hundreds of small ops a slice) took minutes where it
+    takes seconds alone (reduced jamba, an 8-core host)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("arch", jregistry.ARCHS)
@@ -65,18 +78,20 @@ def test_shapes_and_cells_match_reference():
 def test_seeded_init_has_the_reference_layout(arch):
     cfg = registry.reduced(registry.get_config(arch))
     jcfg = jregistry.reduced(jregistry.get_config(arch))
-    a = lm.init_params(torch.Generator().manual_seed(3), cfg, device="cpu")
-    b = lm.init_params(torch.Generator().manual_seed(3), cfg, device="cpu")
-    c = lm.init_params(torch.Generator().manual_seed(4), cfg, device="cpu")
-    shapes = jax.eval_shape(lambda: jlm.init_params(jax.random.PRNGKey(0),
-                                                    jcfg))
+    a = lm.init_params(prng.prng_key(3), cfg, device="cpu")
+    c = lm.init_params(prng.prng_key(4), cfg, device="cpu")
+    ref = jlm.init_params(jax.random.PRNGKey(3), jcfg)
     want = flatten(jax.tree_util.tree_map(lambda s: (tuple(s.shape),
-                                                     str(s.dtype)), shapes))
+                                                     str(s.dtype)), ref))
     got = [(p, (tuple(t.shape), str(t.dtype).replace("torch.", "")))
            for p, t in flatten(a)]
     assert got == want
-    for (path, x), (_, y), (_, z) in zip(flatten(a), flatten(b), flatten(c)):
-        assert torch.equal(x, y), path
+    for (path, x), (_, y), (_, z) in zip(flatten(a), flatten(ref),
+                                         flatten(c)):
+        y = np.asarray(y)                            # compared as words
+        w = x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+        np.testing.assert_array_equal(w.numpy().view(f"u{y.itemsize}"),
+                                      y.view(f"u{y.itemsize}"), path)
         if path.endswith(("embed", "mixer/wq", "mixer/mamba_in")):
             assert not torch.equal(x, z), path
             assert abs(float(x.float().std()) - 0.02) < 2e-3, path
@@ -85,8 +100,7 @@ def test_seeded_init_has_the_reference_layout(arch):
 def test_serving_copy_casts_what_the_reference_casts():
     cfg = registry.reduced(registry.get_config("jamba-1.5-large-398b"))
     cfg = dataclasses.replace(cfg, param_dtype="float32")
-    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
-                            device="cpu")
+    params = lm.init_params(prng.prng_key(0), cfg, device="cpu")
     serving = lm.serving_params(params, cfg)
     kept = set()
     for (path, p), (_, s) in zip(flatten(params), flatten(serving)):
@@ -115,17 +129,15 @@ def test_server_gives_the_reference_servers_tokens(arch):
     prompts = np.random.default_rng(0).integers(
         2, cfg.vocab_size, (4, 16)).astype(np.int32)
     want, _ = ref.generate(prompts, 12)
-    server = BatchedServer(cfg, max_batch=4, device="cpu",
-                           params=lm_params_from_numpy(
-                               jax.tree_util.tree_map(np.asarray,
-                                                      ref.params), "cpu"))
+    want_sampled, _ = ref.generate(prompts, 12, greedy=False, seed=1)
+    server = BatchedServer(cfg, max_batch=4, device="cpu", seed=0)
     got, stats = server.generate(prompts, 12)
     assert got.dtype == np.int32 and got.shape == (4, 12)
     np.testing.assert_array_equal(got, want)
     assert set(stats) == {"prefill_s", "decode_s", "tok_per_s"}
     sampled, _ = server.generate(prompts, 12, greedy=False, seed=1)
-    again, _ = server.generate(prompts, 12, greedy=False, seed=1)
-    np.testing.assert_array_equal(sampled, again)
+    np.testing.assert_array_equal(sampled, want_sampled)
+    assert not np.array_equal(sampled, got)
 
 
 def test_server_without_device_needs_cuda(monkeypatch):

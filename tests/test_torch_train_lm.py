@@ -50,6 +50,7 @@ from repro.optim import adamw_update as jadamw_update  # noqa: E402
 from repro.optim import cosine_schedule as jcosine  # noqa: E402
 from repro.optim.compress import compress_grads as jcompress  # noqa: E402
 from repro_torch.checkpoint import lm_params_from_numpy  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -335,8 +336,7 @@ def test_smoke_train_step_finite(arch):
     from repro_torch.configs import registry
     from repro_torch.launch.steps import make_train_step
     cfg = registry.reduced(registry.get_config(arch))
-    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
-                            device="cpu")
+    params = lm.init_params(prng.prng_key(0), cfg, device="cpu")
     (_, tb), = batches(*configs(arch, None), seed=9, mask=False)
     step = make_train_step(cfg, AdamWConfig(), total_steps=10)
     opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
