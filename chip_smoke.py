@@ -159,6 +159,19 @@ Phases, each printing one JSON line:
            (`device_ms`); the scan rows also time the whole
            `selective_scan_fused` call (`op_ms`) and count its device
            kernels under torch.profiler, which must be one.
+           Then the backward kernels (ATTENTION_BWD_CASES at qwen3-8b's
+           train_lm shape and gemma2-27b's sliding-window layer,
+           SCAN_BWD_CASES at falcon-mamba-7b's train_lm and ops shapes),
+           each through its ops function's autograd Function with a
+           seeded cotangent: one forward and two backward launches; every
+           gradient within its limits (ATTN_BWD_LIMITS, SCAN_BWD_LIMITS)
+           of the plain backward on the same inputs, output and
+           cotangent; two planted faults (the plain backward without one
+           query tile's or one head's cotangent, without the first 32
+           channels' or the middle step's) outside those limits; a
+           repeat bit-equal; the kernel's ms beside its bound, the plain
+           backward's ms and, for qwen3-8b, SDPA's backward (forward
+           plus backward less forward, a yardstick only).
 
 After the ops phase, the `train_profile` line: the backward kernel's
 device time by torch.profiler at the PPO and DQN shapes, and one PPO
@@ -235,19 +248,22 @@ model built from prng_key(0) through the threefry kernel and freed
 before the next: qwen3-8b at full width and 12 of its 36 layers (3.56 B
 parameters: fp32 params, grads and both moments take 57 GB), 4 steps on
 4 x 1024 tokens; falcon-mamba-7b at full width and 16 of its 64 layers, 3
-steps on 2 x 512 tokens (its scan's backward is the plain version, a
-Python loop over the sequence); batches from `SyntheticLMPipeline(seed=0)`,
+steps on 2 x 512 tokens (the cells as they were when the backward ran
+the plain versions); batches from `SyntheticLMPipeline(seed=0)`,
 lr 3e-4 on the driver's cosine. Each step must launch flash_attention
 (or mamba_scan) exactly twice a layer, the forward and the remat
-re-forward, and nothing else of the two; every loss must be finite.
+re-forward, and its backward kernels exactly twice a layer (one
+backward call), and nothing else of the four; every loss must be finite.
 Before the steps, layer 0's superblock, forward and backward, through
 the kernels' autograd Functions is held against the same superblock
 through the plain versions (`Tap`): the output and every gradient within
-TRAIN_LAYER_TOL, each kernel call's output at the ops phase's limits;
-two planted faults (one element of the call's output, one of the
-gradient it returns) must take more than TRAIN_FAULT_SHARE times their
-limits; and the first TRAIN_CPU_LAYERS layers against the CPU (loss and
-gradient norm). The line gives ms a step (median after the first),
+TRAIN_LAYER_TOL, each kernel call's output at the ops phase's limits
+and the gradients its backward kernels return at theirs (against the
+plain backward on the call's inputs, output and cotangent); two planted
+faults (one element of the call's output, one of the gradient it
+returns) must take more than TRAIN_FAULT_SHARE times their limits; and
+the first TRAIN_CPU_LAYERS layers against the CPU (loss and gradient
+norm). The line gives ms a step (median after the first),
 tokens/s, peak GB, the last step under torch.profiler (device busy ms,
 idle share, top kernels), and the step's model FLOPs and their share of
 989 TFLOP/s. Then `launch.train.train` itself, at the reduced
@@ -272,7 +288,8 @@ run for real from the same weights and batches (a warm-up step and
 LAYOUT_STEPS timed steps each: each step's loss within LAYOUT_LOSS_RTOL
 of the baseline's where the layouts differ only in knobs that keep the
 math, two flash_attention launches a layer a step (one with remat
-"none"), step ms and peak GB beside the roofline's t_bound_s, and
+"none") and two backward launches a layer a step, step ms and peak GB
+beside the roofline's t_bound_s, and
 whether the card orders them as the roofline does); MLA's absorbed
 decode at minicpm3-4b, full width and depth, MLA_B requests over a
 MLA_CACHE-token prefilled cache, with and without `mla_absorb` (logits
@@ -292,7 +309,8 @@ wall time.
 Then the kernels summary line (the encoder rows' launches sum the serve,
 learn, qos, control, gen and ablate phases', and the train, learn, qos,
 control and ablate phases' for the backward; the attention and scan rows
-the lm, train_lm, layout and ops phases'; the threefry_normal row the
+the lm, train_lm, layout and ops phases', their backward rows the ops,
+train_lm and layout phases'; the threefry_normal row the
 rng phase's build and the lm, train_lm and layout phases' builds, the
 threefry_gumbel row the lm phase's sampled steps), the `nvidia-smi`
 line, and
@@ -2926,8 +2944,9 @@ def phase_lm():
 # published widths; the depth cut so that fp32 params, grads and both
 # AdamW moments (16 B a parameter) fit one 80 GB card with the step's
 # transients: qwen3-8b 12 of 36 layers (3.56 B parameters, 57 GB),
-# falcon-mamba-7b 16 of 64 (2.0 B, 32 GB; fewer steps and tokens for the
-# plain scan backward, a Python loop over the sequence)
+# falcon-mamba-7b 16 of 64 (2.0 B, 32 GB); each cell's batch and steps
+# kept as they were when a step's backward ran the plain versions, so
+# that its steps compare with those runs
 TRAIN_LM_CELLS = (("qwen3-8b", 12, 4, 1024, 4),
                   ("falcon-mamba-7b", 16, 2, 512, 3))
 TRAIN_LM_LR = 3e-4
@@ -2942,12 +2961,12 @@ TRAIN_LM_LR = 3e-4
 # its roundings, 2^-8 each, which an element left small by cancellation
 # does not bound). Each
 # kernel call's output at the ops phase's elementwise limits; the
-# gradients a call's Function returns against autograd through the plain
-# version on the call's own inputs and the cotangent it received, each
-# within TRAIN_GRAD_RTOL of the gradient's largest |value| (the same
-# ops: the Function's backward is that plain version).
+# gradients a call's Function returns (the backward kernels') against
+# the plain backward on the call's own inputs, its output and the
+# cotangent it received, at the backward kernels' own limits
+# (ATTN_BWD_LIMITS, SCAN_BWD_LIMITS, as the ops phase's backward cases
+# hold them).
 TRAIN_LAYER_TOL = 2e-2
-TRAIN_GRAD_RTOL = 1e-5
 # a planted fault, one element of a kernel call's output (or of the
 # gradient it returns for its first input) moved by the largest |value|
 # of that tensor, must take more than this many times its limit
@@ -3063,24 +3082,25 @@ def norm_closeness(case, got, want):
 
 
 def call_grads_check(rec):
-    """The gradients one kernel call's Function returned against
-    autograd through the plain version on the call's own inputs and the
-    cotangent it received: rows of each input's gradient, elementwise
-    within TRAIN_GRAD_RTOL of its largest |value|."""
-    args = [a.detach().requires_grad_(i in rec["grads"])
-            if torch.is_tensor(a) else a for i, a in enumerate(rec["args"])]
-    plain = plain_mha if len(args) == 3 else plain_scan
-    with torch.enable_grad():
-        out = plain(*args, **rec["kw"])
-        first = out[0] if isinstance(out, tuple) else out
-        want = torch.autograd.grad(first, [args[i] for i in rec["grads"]],
-                                   rec["g_out"])
-    rows = []
-    for (i, got), w in zip(rec["grads"].items(), want):
-        scale = TRAIN_GRAD_RTOL * float(w.float().abs().max())
-        rows.append(closeness(f"call/grad{i}", got, w, max(scale, 1e-30),
-                              0.0))
-    return rows
+    """The gradients one kernel call's Function returned (the backward
+    kernels') against the plain backward on the call's own inputs, its
+    output and the cotangent it received: rows of each input's gradient,
+    elementwise within the kernel's limits (ATTN_BWD_LIMITS by dtype,
+    SCAN_BWD_LIMITS)."""
+    args = [a.detach() if torch.is_tensor(a) else a for a in rec["args"]]
+    if len(args) == 3:                                   # attention
+        qf, kf, vf, of = flat_attention({"args": args, "out": rec["out"]})
+        want = attention_bwd_plain(qf, kf, vf, of, flat_heads(rec["g_out"]),
+                                   **rec["kw"])
+        want = [model_heads(w, args[0].shape[0]) for w in want]
+        limits = ATTN_BWD_LIMITS[args[0].dtype]
+    else:                                                # the scan, with D
+        want = ref.mamba_scan_bwd_ref(*args, rec["kw"].get("h0"),
+                                      rec["g_out"], None)
+        limits = SCAN_BWD_LIMITS
+    names = [f"grad{i}" for i in rec["grads"]]
+    return grads_rows("call", names, list(rec["grads"].values()),
+                      [want[i] for i in rec["grads"]], limits)
 
 
 def superblock0(params, cfg, tokens, tap):
@@ -3136,14 +3156,17 @@ def layer0_checks(arch, params, cfg, tokens):
     def run(tap):
         return superblock0(params, cfg, tokens, tap), tap
     plain = run(Tap(plain=True))
-    before = counts()
+    before = {**counts(), **bwd_counts()}
     kernel = run(Tap())
-    after = counts()
+    after = {**counts(), **bwd_counts()}
     rows = compare(kernel, plain)
     launched = {k: after[k] - before[k] for k in after}
-    if sum(launched.values()) != len(kernel[1].calls):
-        rows.append({"case": "one launch a call", "ok": False,
-                     "launches": launched, "calls": len(kernel[1].calls)})
+    fwd = sum(launched[k] for k in counts())
+    bwd = sum(launched[k] for k in bwd_counts())
+    if fwd != len(kernel[1].calls) or bwd != 2 * len(kernel[1].calls):
+        rows.append({"case": "one forward and one backward call a call",
+                     "ok": False, "launches": launched,
+                     "calls": len(kernel[1].calls)})
     faults = {}
     for fault in ("out", "grad"):
         shares = [r.get("limit_share", float("inf"))
@@ -3201,9 +3224,11 @@ def step_flops(cfg, B, S):
         s.mixer != "mamba" for s in cfg.block_pattern)
     attn = attn_layers * 4 * B * cfg.n_heads * cfg.hd * S * (S + 1) / 2
     model = 6 * (layer_w + head_w) * T + 3 * attn
-    # + the superblocks' and the CE chunk's re-forwards, and attention
-    # once more in the kernel Function's backward (the plain version's)
-    return model, model + 2 * (layer_w + head_w) * T + 2 * attn
+    # + the superblocks' and the CE chunk's re-forwards; attention's
+    # backward kernels run 8 products where the model counts 4 (QK^T
+    # three times and dO V^T twice, against once each): attention once
+    # more in the re-forward and twice more in the backward
+    return model, model + 2 * (layer_w + head_w) * T + 3 * attn
 
 
 def train_cell(arch, layers, B, S, steps, bad):
@@ -3237,9 +3262,12 @@ def train_cell(arch, layers, B, S, steps, bad):
         for s in cfg.block_pattern)
     mamba_layers = cfg.n_superblocks * sum(
         s.mixer == "mamba" for s in cfg.block_pattern)
-    # the forward and the remat re-forward, a layer a step
+    # the forward and the remat re-forward, a layer a step; the backward
+    # kernels, one call (two launches) a layer a step
     want = {"flash_attention": 2 * attn_layers,
-            "mamba_scan": 2 * mamba_layers}
+            "mamba_scan": 2 * mamba_layers,
+            "flash_attention_bwd": 2 * attn_layers,
+            "mamba_scan_bwd": 2 * mamba_layers}
     step_fn = train_step_fn(cfg, AdamWConfig(lr=TRAIN_LM_LR), steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3248,7 +3276,7 @@ def train_cell(arch, layers, B, S, steps, bad):
     for s in range(steps):
         batch = batch_on(next(pipe), cfg, "cuda")
         torch.cuda.synchronize()
-        fa.launches = ms.launches = 0
+        fa.launches = ms.launches = fa.bwd_launches = ms.bwd_launches = 0
         if s == steps - 1 and steps > 2:     # the last step, profiled
             profile, metrics = profiled_step(step_fn, params, opt, batch)
             params, opt = profile.pop("state")
@@ -3257,8 +3285,7 @@ def train_cell(arch, layers, B, S, steps, bad):
             params, opt, _, metrics = step_fn(params, opt, 0, batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        per_step.append({"flash_attention": fa.launches,
-                         "mamba_scan": ms.launches})
+        per_step.append({**counts_lm(), **bwd_counts()})
         losses.append(float(metrics["loss"]))
     peak = torch.cuda.max_memory_allocated() / 1e9
     walls["steps_s"] = time.perf_counter() - t0
@@ -3328,10 +3355,13 @@ def profiled_step(step_fn, params, opt, batch):
 
 
 def kernel_class(name: str) -> str:
-    """A device kernel's class by its name: the port's two LM kernels,
-    cuBLAS products, reductions, or elementwise and copies."""
+    """A device kernel's class by its name: the port's LM kernels and
+    their backward kernels, cuBLAS products, reductions, or elementwise
+    and copies."""
     for kernel in ("flash_wgmma_kernel", "flash_decode_kernel",
-                   "flash_f32_kernel", "mamba_scan_kernel"):
+                   "flash_f32_kernel", "mamba_scan_kernel",
+                   "attn_bwd_dq", "attn_bwd_dkv", "scan_bwd_kernel",
+                   "scan_bwd_sum_kernel"):
         if kernel in name:
             return kernel
     if any(k in name for k in ("gemm", "nvjet", "xmma", "gemv", "cutlass")):
@@ -3351,10 +3381,11 @@ def train_driver(bad):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         kw = {k: v for k, v in DRIVER.items() if k != "steps"}
-        fa.launches = ms.launches = 0
+        fa.launches = ms.launches = fa.bwd_launches = 0
         _, losses = train_lm(**kw, steps=DRIVER["steps"], ckpt_dir=tmp,
                              log_every=0, device="cuda")
-        launched = fa.launches
+        launched = {"flash_attention": fa.launches,
+                    "flash_attention_bwd": fa.bwd_launches}
         on_disk = Checkpointer(tmp).steps()
         _, more = train_lm(**kw, steps=DRIVER["steps"] + DRIVER_MORE,
                            ckpt_dir=tmp, restore=True, log_every=0,
@@ -3362,7 +3393,7 @@ def train_driver(bad):
         after = Checkpointer(tmp).steps()
     row = {"arch": DRIVER["arch"] + " (reduced)", **DRIVER,
            "losses": losses, "launches": launched,
-           "want_launches": per_step * DRIVER["steps"],
+           "want_launches": {k: per_step * DRIVER["steps"] for k in launched},
            "checkpoints": on_disk, "restored_losses": more,
            "checkpoints_after_restore": after,
            "seconds": time.perf_counter() - t0}
@@ -3382,14 +3413,16 @@ def phase_train_lm():
     full width (cut depth), then the driver. Every check runs before any
     fails. Returns the phase's launches."""
     bad, rows = [], []
-    total = {"flash_attention": 0, "mamba_scan": 0}
+    total = {**counts_lm(), **bwd_counts()}
+    total = {k: 0 for k in total}
     t0 = time.perf_counter()
     for cell in TRAIN_LM_CELLS:
         row, launched = train_cell(*cell, bad)
         rows.append(row)
         total = {k: total[k] + launched[k] for k in total}
     driver, launched = train_driver(bad)
-    total["flash_attention"] += launched
+    for k, n in launched.items():
+        total[k] += n
     emit({"phase": "train_lm", "models": rows, "driver": driver,
           "launches": total, "seconds": time.perf_counter() - t0,
           "nvidia_smi": nvidia_smi(), "ok": not bad, "mismatches": bad})
@@ -3480,18 +3513,19 @@ def op_classes(counter):
 def layout_dry_vs_card(cfg, bad):
     """One train step counted on meta and the same step counted on the
     card: FLOPs, bytes and the kernels' records must be equal. Returns the
-    row and the card's flash_attention launches."""
+    row and the card's flash_attention (forward and backward) launches."""
     shape = layout_shape()
     t0 = time.perf_counter()
     meta, meta_mem, meta_s = dryrun.count_step(cfg, shape, BASELINE)
     params, opt, batches = layout_state(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
+    fa.launches = fa.bwd_launches = 0
     card, card_mem, card_s = dryrun.count_step(
         cfg, shape, BASELINE, inputs=(params, opt, batches[0]))
     torch.cuda.synchronize()
-    launched = fa.launches
+    launched = {"flash_attention": fa.launches,
+                "flash_attention_bwd": fa.bwd_launches}
     peak = torch.cuda.max_memory_allocated()
     del params, opt, batches
     torch.cuda.empty_cache()
@@ -3516,7 +3550,9 @@ def layout_dry_vs_card(cfg, bad):
            "step_flops": step_flops(cfg, LAYOUT_B, LAYOUT_S)[0],
            "model_over_step_flops": model_flops
            / step_flops(cfg, LAYOUT_B, LAYOUT_S)[0],
-           "launches": launched, "want_launches": 2 * cfg.n_layers,
+           "launches": launched,
+           "want_launches": {"flash_attention": 2 * cfg.n_layers,
+                             "flash_attention_bwd": 2 * cfg.n_layers},
            "seconds": time.perf_counter() - t0}
     if not all(same.values()):
         bad.append(f"dry run and card count differ: {same}")
@@ -3573,12 +3609,12 @@ def layout_run(cfg, layout):
     if layout.grad_compress:
         step = steps_lib.make_train_step(cfg, grad_compress=True)
     pol = dryrun.layout_policy(make_production_mesh(), layout)
-    losses, times, launches = [], [], []
+    losses, times, launches, bwd = [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with act_sharding.policy(pol):
         for i, batch in enumerate(batches):
-            fa.launches = 0
+            fa.launches = fa.bwd_launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             params, opt, metrics = step(params, opt, batch)
@@ -3586,6 +3622,7 @@ def layout_run(cfg, layout):
             if i:
                 times.append(time.perf_counter() - t0)
             launches.append(fa.launches)
+            bwd.append(fa.bwd_launches)
             losses.append(float(metrics["loss"]))
     peak = torch.cuda.max_memory_allocated()
     del params, opt, batches
@@ -3598,6 +3635,9 @@ def layout_run(cfg, layout):
             "step_ms_median": float(np.median(times)) * 1e3,
             "peak_gb": peak / 1e9, "launches_per_step": launches,
             "want_launches_per_step": want,
+            # one backward call (two launches) a layer, in every mode
+            "bwd_launches_per_step": bwd,
+            "want_bwd_launches_per_step": 2 * cfg.n_layers,
             "t_bound_s": rec["roofline"]["t_bound_s"],
             "bottleneck": rec["roofline"]["bottleneck"],
             "counted_peak_gb": rec["memory"]["live_bytes_per_device"] / 1e9}
@@ -3624,9 +3664,12 @@ def layout_runs(cfg, best, bad):
                 bad.append(f"layout {run['layout']}: losses {run['losses']} "
                            f"against the baseline's {base['losses']}")
         if any(n != run["want_launches_per_step"]
-               for n in run["launches_per_step"]):
+               for n in run["launches_per_step"]) or any(
+                n != run["want_bwd_launches_per_step"]
+                for n in run["bwd_launches_per_step"]):
             bad.append(f"layout {run['layout']}: launched "
-                       f"{run['launches_per_step']} a step")
+                       f"{run['launches_per_step']} and "
+                       f"{run['bwd_launches_per_step']} (backward) a step")
     by_card = sorted(range(len(runs)), key=lambda i: runs[i]["step_ms_median"])
     by_roof = sorted(range(len(runs)), key=lambda i: runs[i]["t_bound_s"])
     return runs, {"card_order": [runs[i]["layout"] for i in by_card],
@@ -3813,25 +3856,29 @@ def layout_psum(bad):
 def phase_layout():
     """The layout re-optimizer and its tooling on the card (see the
     module docstring). Every check runs before any fails. Returns the
-    phase's flash_attention launches."""
+    phase's flash_attention launches, forward and backward."""
     bad = []
     t0 = time.perf_counter()
     cfg = layout_cfg()
     dry, launched = layout_dry_vs_card(cfg, bad)
     best, climb = layout_climb(cfg)
     runs, order = layout_runs(cfg, best, bad)
-    launched += sum(sum(r["launches_per_step"]) for r in runs)
+    launched = dict(launched)
+    launched["flash_attention"] += sum(sum(r["launches_per_step"])
+                                       for r in runs)
+    launched["flash_attention_bwd"] += sum(sum(r["bwd_launches_per_step"])
+                                           for r in runs)
     mla = layout_mla(bad)
     moe_row = layout_moe(bad)
     psum = layout_psum(bad)
     emit({"phase": "layout", "dry_run_vs_card": dry, "climb": climb,
           "runs": runs, "order": order, "mla_absorb": mla, "moe": moe_row,
-          "compressed_psum": psum, "launches": {"flash_attention": launched},
+          "compressed_psum": psum, "launches": launched,
           "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi(),
           "ok": not bad, "mismatches": bad})
     if bad:
         raise AssertionError(f"layout phase: {bad}")
-    return {"flash_attention": launched}
+    return launched
 
 
 # -------------------------------------------------------------- ops phase
@@ -3877,6 +3924,45 @@ SCAN_CASES = (
 )
 
 
+# The backward kernels in the ops phase, each driven through its ops
+# function's autograd Function (the forward kernel, then the backward's
+# two launches) with a seeded cotangent: (case, B, S, H, K, hd, window,
+# softcap), bf16 and causal: qwen3-8b at the train_lm cell's 4 x 1024
+# tokens and gemma2-27b's sliding-window layer at 8192; (case, B, S,
+# d_inner, d_state, full): falcon-mamba-7b at the train_lm cell's 2 x 512
+# with the cotangent of y alone (as training gives it), and at the ops
+# phase's forward case, 1 x 2048, from a given h0 with the cotangents of
+# y and h_last ("full").
+ATTENTION_BWD_CASES = (
+    ("qwen3-8b/train", 4, 1024, 32, 8, 128, 0, 0.0),
+    ("gemma2-27b/local", 1, 8192, 32, 16, 128, 4096, 50.0),
+)
+SCAN_BWD_CASES = (
+    ("falcon-mamba-7b/train", 2, 512, 2 * 4096, 16, False),
+    ("falcon-mamba-7b", 1, 2048, 2 * 4096, 16, True),
+)
+# Each gradient against the plain backward (`ref.flash_attention_bwd_ref`,
+# `ref.mamba_scan_bwd_ref`) on the same inputs, forward output and
+# cotangent: |kernel - plain| <= atol * max|plain| + rtol * |plain|, with
+# (atol, rtol) from ATTN_BWD_LIMITS by dtype, or SCAN_BWD_LIMITS. fp32
+# (attention and the scan): both compute in fp32 from the same inputs;
+# atol covers fp32 sums taken in other orders and expf against torch's
+# exp (the worst in the first card runs: 3e-6 of the largest |value| in
+# fp32 attention, 1.4e-6 in the scan). bf16 attention: the kernel rounds
+# P and dS to bf16 for the tensor cores where the plain backward keeps
+# fp32, and both round their results to bf16: rtol is one bf16 ulp
+# (2^-7 |x|) and atol 4e-3, 2.8 times the worst the tensor-core kernel
+# needed at these shapes and at ragged, windowed, softcapped and Sq != Sk
+# ones in its first card run (1.4e-3). A planted fault, the plain backward
+# with the cotangent of one query tile (of one head of each GQA group; of
+# the first 32 channels; of the middle step) left out, as a kernel that
+# skipped it would give, must fall outside the same limits.
+ATTN_BWD_LIMITS = {torch.bfloat16: (4e-3, 2.0 ** -7),
+                   torch.float32: (1e-5, 0.0)}
+SCAN_BWD_LIMITS = (1e-5, 0.0)
+BWD_TILE = 32              # the dkv kernel's query tile, the scan's block
+
+
 def closeness(case, out, want, atol, rtol):
     """How `out` stands to `want`: "ok" if both have one shape, `out` is
     finite and |out - want| <= atol + rtol * |want| everywhere; the largest
@@ -3910,6 +3996,16 @@ def counts():
     return {"flash_attention": fa.launches, "mamba_scan": ms.launches,
             "tree_conv": tree_conv.tree_conv_launches,
             "tree_cnn_fused": tree_conv.tree_cnn_fused_launches}
+
+
+def counts_lm():
+    return {"flash_attention": fa.launches, "mamba_scan": ms.launches}
+
+
+def bwd_counts():
+    """The LM kernels' backward launches (two a backward call)."""
+    return {"flash_attention_bwd": fa.bwd_launches,
+            "mamba_scan_bwd": ms.bwd_launches}
 
 
 def ops_call(kernel, fn, *args, **kw):
@@ -3963,10 +4059,11 @@ def phase_ops(ckpt_tree, db, wl, meta):
     read the counts. Then hold every result to its kernel's plain version
     on the same inputs, and fail naming each case outside its limit; then
     time each kernel, its plain version and, where one computes the same
-    function, PyTorch's own call."""
+    function, PyTorch's own call. Then the backward cases
+    (`ops_backward`), each checked, faulted and timed."""
     attn, scans, trained, (tree1, tree2) = ops_inputs(ckpt_tree, db, wl,
                                                       meta)
-    fa.launches = ms.launches = 0
+    fa.launches = ms.launches = fa.bwd_launches = ms.bwd_launches = 0
     tree_conv.tree_conv_launches = tree_conv.tree_cnn_fused_launches = 0
     with torch.inference_mode():
         for a in attn:
@@ -4003,8 +4100,254 @@ def phase_ops(ckpt_tree, db, wl, meta):
     lone = [r for r in rows if r.get("device_kernels_per_op", 1) != 1]
     if lone:
         raise AssertionError(f"an ops call ran more than its kernel: {lone}")
-    emit({"phase": "ops", "launches": launched, "cases": rows})
-    return launched, rows
+    bwd_rows, bwd_launched = ops_backward()
+    for k, n in bwd_launched.items():
+        launched[k] = launched.get(k, 0) + n
+    emit({"phase": "ops", "launches": launched, "cases": rows,
+          "backward": bwd_rows, "nvidia_smi": nvidia_smi()})
+    bad = [r for r in bwd_rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"a backward kernel and its plain version "
+                             f"disagree: {bad}")
+    return launched, rows, bwd_rows
+
+
+def flat_heads(t):
+    """(B, S, H, hd) -> the kernel's (B*H, S, hd)."""
+    B, S, H, hd = t.shape
+    return t.transpose(1, 2).reshape(B * H, S, hd)
+
+
+def model_heads(t, B):
+    """The kernel's (B*H, S, hd) -> (B, S, H, hd)."""
+    BH, S, hd = t.shape
+    return t.reshape(B, BH // B, S, hd).transpose(1, 2)
+
+
+def attention_bwd_plain(q, k, v, out, g, **kw):
+    """ref.flash_attention_bwd_ref over slices of PLAIN_HEADS query rows
+    (whole GQA groups) and their k/v rows: fp32 score matrices of a few GB
+    at gemma2's S = 8192."""
+    G = q.shape[0] // k.shape[0]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for a in range(0, q.shape[0], PLAIN_HEADS):
+        b = min(a + PLAIN_HEADS, q.shape[0])
+        dq[a:b], dk[a // G:b // G], dv[a // G:b // G] = \
+            ref.flash_attention_bwd_ref(q[a:b], k[a // G:b // G],
+                                        v[a // G:b // G], out[a:b], g[a:b],
+                                        **kw)
+    return dq, dk, dv
+
+
+def grads_rows(case, names, got, want, limits):
+    """`closeness` of each gradient to the plain one, limits = (atol as a
+    share of its largest |value|, rtol)."""
+    atol, rtol = limits
+    return [closeness(f"{case}/{n}", g, w,
+                      max(atol * float(w.float().abs().max()), 1e-30), rtol)
+            for n, g, w in zip(names, got, want) if w is not None]
+
+
+def launched_by(fn):
+    """Run fn; the LM kernels' launches it made (forward and backward)."""
+    before = {**counts(), **bwd_counts()}
+    out = fn()
+    torch.cuda.synchronize()
+    after = {**counts(), **bwd_counts()}
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def fault_shares(bads, want, names, limits):
+    """Each planted fault's largest share of the limits (above 1:
+    refused)."""
+    return {name: max(r["limit_share"] for r in grads_rows(name, names, bad,
+                                                          want, limits))
+            for name, bad in bads.items()}
+
+
+def attention_bwd_case(case, B, S, H, K, hd, window, cap, gen):
+    """One backward case through `mha_flash`'s Function: the gradients
+    against the plain backward, two planted faults, a repeat bit-equal,
+    then the kernel's time beside the plain backward's, the bound and
+    SDPA's backward."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    q, k, v = (randn(B, S, n, hd).requires_grad_(True) for n in (H, K, K))
+    w = randn(B, S, H, hd)
+    kw = dict(causal=True, window=window, softcap=cap)
+
+    def drive():
+        out = ops.mha_flash(q, k, v, **kw)
+        return out.detach(), torch.autograd.grad(out, (q, k, v), w)
+    (out, grads), launched = launched_by(drive)
+    qf, kf, vf, of, gf = (flat_heads(t.detach()).contiguous()
+                          for t in (q, k, v, out, w))
+    got = [flat_heads(g) for g in grads]
+    want = attention_bwd_plain(qf, kf, vf, of, gf, **kw)
+    names, limits = ("dq", "dk", "dv"), ATTN_BWD_LIMITS[torch.bfloat16]
+    rows = grads_rows(case, names, got, want, limits)
+    G = H // K
+    first_tile, one_head = gf.clone(), gf.clone()
+    first_tile[:, :BWD_TILE] = 0
+    one_head.view(-1, G, S, hd)[:, G - 1] = 0
+    faults = fault_shares(
+        {n: attention_bwd_plain(qf, kf, vf, of, g, **kw)
+         for n, g in (("first_q_tile", first_tile),
+                      ("one_head_of_each_group", one_head))},
+        want, names, limits)
+    again = [fa.flash_attention_bwd(qf, kf, vf, of, gf, **kw)
+             for _ in range(2)]
+    repeat = all(torch.equal(a.contiguous(), b) and torch.equal(b, c)
+                 for a, b, c in zip(got, *again))
+    ms_kernel = cuda_ms(lambda: fa.flash_attention_bwd(qf, kf, vf, of, gf,
+                                                       **kw),
+                        launches=3, reps=5, warmup=2)
+    by_kernel = median_by_kernel(
+        lambda: fa.flash_attention_bwd(qf, kf, vf, of, gf, **kw))
+    plain = cuda_ms(lambda: attention_bwd_plain(qf, kf, vf, of, gf, **kw),
+                    launches=1, reps=3, warmup=1)
+    pairs = work.allowed_pairs(S, S, True, window)
+    n_bytes, flops = work.attention_bwd_work(B * H, B * K, S, S, hd,
+                                             causal=True, window=window,
+                                             itemsize=2)
+    row = {"case": case, "entry": "mha_flash backward",
+           "kernel": "flash_attention_bwd", "q": [B, S, H, hd],
+           "kv": [B, S, K, hd], **kw, "dtype": "torch.bfloat16",
+           "launches": launched, "ms": ms_kernel,
+           "device_ms_by_kernel": by_kernel or None, "plain_ms": plain,
+           **work.bound(n_bytes, flops, BF16_FLOPS),
+           # the function's one exp a pair; the kernel takes three
+           "sfu_ms": sfu_ms(pairs * B * H),
+           # the kernels' 8 products (QK^T three times, g V^T twice)
+           "kernel_tflop_per_s": 8 * 2 * hd * pairs * B * H / ms_kernel / 1e9,
+           "tflop_per_s": flops / ms_kernel / 1e9,
+           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "worst": max(rows, key=lambda r: r["limit_share"]),
+           "planted_limit_share": faults, "repeat_bit_equal": repeat,
+           "library_ms": None,
+           "library_note": "none: SDPA has no softcap or window"}
+    row["kernel_over_bound"] = ms_kernel / row["bound_ms"]
+    if window == 0 and cap == 0.0:
+        row.update(sdpa_bwd(qf, kf, vf, gf, B, want))
+    row["ok"] = (all(r["ok"] for r in rows) and repeat
+                 and min(faults.values()) > 1
+                 and launched == {"flash_attention": 1,
+                                  "flash_attention_bwd": 2})
+    return row
+
+
+def sdpa_bwd(qf, kf, vf, gf, B, want):
+    """SDPA's backward as a yardstick (the port never calls it): causal
+    (top-left, the same as right-aligned at Sq = Sk), enable_gqa, timed
+    as forward plus backward less the forward; its gradients' largest
+    difference from the plain backward's."""
+    F = torch.nn.functional
+    q4, k4, v4 = (t.view(B, -1, t.shape[1], t.shape[2]).detach()
+                  .requires_grad_(True) for t in (qf, kf, vf))
+    g4 = gf.view(q4.shape)
+
+    def fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              enable_gqa=True)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (q4, k4, v4), g4)
+    note = ("F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+            " forward + backward, less the forward")
+    try:
+        grads = fwd_bwd()
+        diff = max(float((a.reshape(b.shape).float() - b.float()).abs()
+                         .max()) for a, b in zip(grads, want))
+        both = cuda_ms(fwd_bwd, launches=3, warmup=2)
+        alone = cuda_ms(fwd, launches=3, warmup=2)
+    except Exception as e:           # the cell says why, in place of a time
+        return {"library_ms": None, "library_note": f"{note} could not run: "
+                f"{type(e).__name__}: {str(e)[:300]}"}
+    return {"library_ms": both - alone, "library_fwd_bwd_ms": both,
+            "library_fwd_ms": alone, "library_max_abs_diff": diff,
+            "library_note": note}
+
+
+def scan_bwd_case(case, B, S, di, N, full, gen):
+    """One backward case through `selective_scan_fused`'s Function: the
+    gradients against the plain backward, two planted faults, a repeat
+    bit-equal, then the kernels' times beside the plain backward's and
+    the bound."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x, dt = randn(B, S, di), randn(B, S, di).abs() * 0.1
+    A = -torch.arange(1, N + 1, device="cuda", dtype=torch.float32).repeat(
+        di, 1)
+    Bs, Cs, D = randn(B, S, N), randn(B, S, N), randn(di)
+    h0 = randn(B, di, N) if full else None
+    ins = [t.requires_grad_(True) for t in (x, dt, A, Bs, Cs, D)
+           + ((h0,) if full else ())]
+    gy = randn(B, S, di)
+    gh = randn(B, di, N) if full else None
+
+    def drive():
+        y, h = ops.selective_scan_fused(*ins[:6], h0=h0)
+        outs = (y, h) if full else (y,)
+        return torch.autograd.grad(outs, ins, (gy, gh) if full else (gy,))
+    grads, launched = launched_by(drive)
+    plain = [t.detach() for t in ins] + ([] if full else [None])
+    want = ref.mamba_scan_bwd_ref(*plain, gy, gh)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+    rows = grads_rows(case, names, grads, want, SCAN_BWD_LIMITS)
+    first_block, one_step = gy.clone(), gy.clone()
+    first_block[..., :BWD_TILE] = 0
+    one_step[:, S // 2] = 0
+    gh_block = None
+    if gh is not None:
+        gh_block = gh.clone()
+        gh_block[:, :BWD_TILE] = 0
+    faults = fault_shares(
+        {"first_block": ref.mamba_scan_bwd_ref(*plain, first_block, gh_block),
+         "one_step": ref.mamba_scan_bwd_ref(*plain, one_step, gh)},
+        want, names, SCAN_BWD_LIMITS)
+    again = [ms.mamba_scan_bwd(*plain, gy, gh) for _ in range(2)]
+    repeat = all(torch.equal(a, b) and torch.equal(b, c)
+                 for a, b, c in zip(grads, *again))
+    ms_kernel = cuda_ms(lambda: ms.mamba_scan_bwd(*plain, gy, gh),
+                        launches=3, reps=5, warmup=2)
+    by_kernel = median_by_kernel(lambda: ms.mamba_scan_bwd(*plain, gy, gh))
+    plain_ms = cuda_ms(lambda: ref.mamba_scan_bwd_ref(*plain, gy, gh),
+                       launches=1, reps=3, warmup=1)
+    n_bytes, flops = work.scan_bwd_work(B, S, di, N, skip=True, h0=full,
+                                        gy=True, gh=full)
+    row = {"case": case, "entry": "selective_scan_fused backward",
+           "kernel": "mamba_scan_bwd", "x": [B, S, di], "A": [di, N],
+           "h0": full, "gh": full, "dtype": "torch.float32",
+           "launches": launched, "ms": ms_kernel,
+           "device_ms_by_kernel": by_kernel or None, "plain_ms": plain_ms,
+           **work.bound(n_bytes, flops, FP32_FLOPS),
+           # the function's one exp a (b, t, d, n); the kernel takes two
+           "sfu_ms": sfu_ms(B * S * di * N),
+           "tb_per_s": n_bytes / ms_kernel / 1e9,
+           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "worst": max(rows, key=lambda r: r["limit_share"]),
+           "planted_limit_share": faults, "repeat_bit_equal": repeat,
+           "library_ms": None, "library_note": "none"}
+    row["kernel_over_bound"] = ms_kernel / row["bound_ms"]
+    row["ok"] = (all(r["ok"] for r in rows) and repeat
+                 and min(faults.values()) > 1
+                 and launched == {"mamba_scan": 1, "mamba_scan_bwd": 2})
+    return row
+
+
+def ops_backward():
+    """The ops phase's backward cases (ATTENTION_BWD_CASES,
+    SCAN_BWD_CASES); their launches through the Functions."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = [attention_bwd_case(*c, gen) for c in ATTENTION_BWD_CASES]
+    rows += [scan_bwd_case(*c, gen) for c in SCAN_BWD_CASES]
+    launched = {}
+    for r in rows:
+        for k, n in r["launches"].items():
+            launched[k] = launched.get(k, 0) + n
+    return rows, launched
 
 
 def flat_attention(a):
@@ -4178,6 +4521,16 @@ def device_kernels(fn, calls: int = 1, sessions: int = 3):
     return []
 
 
+def median_by_kernel(fn, calls: int = 5) -> dict:
+    """Median device ms of each kernel `fn` launches, by name, over
+    `calls` calls under torch.profiler (a median per kernel, so that a
+    session that lost some of its events still reads a call's time)."""
+    times = {}
+    for name, t in device_kernels(fn, calls):
+        times.setdefault(name[:60], []).append(t)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
 def device_ms(fn, calls: int = 20) -> float:
     """Median device time of the one kernel `fn` launches, by
     torch.profiler: the kernel alone, without the gaps between launches
@@ -4277,7 +4630,7 @@ def main() -> int:
     ablate_launches, ablate_profiled = phase_ablate()
     if args.profile:
         phase_profile(db, wl, meta, params_from_numpy(tree))
-    ops_launches, ops_rows = phase_ops(tree, db, wl, meta)
+    ops_launches, ops_rows, bwd_rows = phase_ops(tree, db, wl, meta)
     phase_late_profiles(bwd_timing, trained, trajs, ablate_profiled)
     rng_launches, rng_rows = phase_rng()
     lm_launches = phase_lm()
@@ -4326,6 +4679,24 @@ def main() -> int:
             "launches": ops_launches[name] + lm_launches.get(name, 0)
             + train_lm_launches.get(name, 0)
             + layout_launches.get(name, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}, "case": case})
+    for name, fwd, case in (
+            ("flash_attention_bwd", "flash_attention", "qwen3-8b/train"),
+            ("mamba_scan_bwd", "mamba_scan", "falcon-mamba-7b/train")):
+        mine = [r for r in bwd_rows if r["kernel"] == name]
+        row = next(r for r in mine if r["case"] == case)
+        summary.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": next(r["replaces"] for r in summary
+                             if r["name"] == fwd),
+            "replaces_note": "the backward of that kernel's function: the "
+                             "reference differentiates its jnp oracle "
+                             "(src/repro/kernels/ref.py) with autodiff",
+            "launches": sum(ph.get(name, 0) for ph in (
+                ops_launches, train_lm_launches, layout_launches)),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}, "case": case})

@@ -20,7 +20,8 @@ from typing import Dict, Iterable
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("tree_cnn_fused", "tree_cnn_fused_bwd", "tree_conv", "mamba_scan",
-           "flash_attention", "threefry")
+           "mamba_scan_bwd", "flash_attention", "flash_attention_bwd",
+           "threefry")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -32,14 +32,20 @@ kernel's FLOPs and bytes (`work.attention_work`), whatever the device,
 and the counter does not count the wrapper's own ops: a count on the CPU
 or on `meta` is the card's.
 
-Gradients: the kernel has no backward, nor has the reference's Pallas
-kernel. With gradients on, a call goes through `FlashAttention`, a
-`torch.autograd.Function` whose forward launches the kernel (its plain
-version on the CPU) and keeps q, k and v, and whose backward runs the
-plain version again on them under autograd and returns its gradients
-(the shape of the reference's `tree_cnn_fused` VJP: the kernel forward, a
-recomputation backward). On the CPU that gives autograd's own gradients
-of the plain version.
+Gradients: the reference's Pallas kernel has no VJP (its LMs train
+through jnp autodiff of the plain oracle); here the backward is a kernel
+too. With gradients on, a call goes through `FlashAttention`, a
+`torch.autograd.Function` whose forward launches the forward kernel and
+keeps q, k, v and the output, and whose backward (`flash_attention_bwd`)
+launches the two kernels of csrc/flash_attention_bwd.cu: one a query
+tile (each row's logsumexp and D = rowsum(g * out), then dQ), then one a
+k/v tile (dK and dV, over the G query heads of its k/v head), no atomics,
+repeatable bit for bit; bf16 on the tensor cores (mma.sync, fp32
+accumulate, P and dS rounded to bf16 as operands), fp32 exactly on the
+FMA units. For CPU tensors it runs the plain backward
+`ref.flash_attention_bwd_ref`, for `meta` ones it returns the empty
+fakes; under an op counter it records `work.attention_bwd_work`.
+`bwd_launches` counts its launches, two a call.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ PATHS = {"fp32": 0, "wgmma": 1, "decode": 2}   # the C entry point's codes
 MAX_GRID_Y = 65535
 
 launches = 0                  # kernel launches (not plain-version calls)
+bwd_launches = 0              # backward kernel launches, two a call
 
 
 def _check(q, k, v):
@@ -154,28 +161,75 @@ def _forward(q, k, v, *, causal, window, softcap, scale):
     return out
 
 
+def _bwd_library():
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention_bwd").flash_attention_backward
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd(q, k, v, out, g, *, causal=True, window=0,
+                        softcap=0.0, scale=None):
+    """The backward kernel's function on checked tensors (q, k, v as
+    `flash_attention` takes them, `out` its output and `g` that output's
+    cotangent, both (BH, Sq, hd) in q's dtype): (dq, dk, dv) in their
+    inputs' dtypes. Two counted launches on CUDA, the plain backward on
+    the CPU, empty fakes on `meta`; recorded for an active op counter."""
+    global bwd_launches
+    BH, Sq, hd = q.shape
+    cost = work.attention_bwd_work(BH, k.shape[0], Sq, k.shape[1], hd,
+                                   causal=causal, window=window,
+                                   itemsize=q.element_size())
+    with opanalysis.kernel("flash_attention_bwd", cost[1], cost[0]):
+        if q.device.type == "cpu":
+            return ref.flash_attention_bwd_ref(
+                q, k, v, out, g, causal=causal, window=window,
+                softcap=softcap, scale=scale)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        if q.device.type == "meta":
+            return dq, dk, dv
+        # each row's logsumexp and D, from the first launch to the second
+        stats = torch.empty((2, BH, Sq), dtype=torch.float32,
+                            device=q.device)
+        scale = hd ** -0.5 if scale is None else scale
+        with torch.cuda.device(q.device):
+            err = _bwd_library()(
+                *(t.data_ptr() for t in (q, k, v, out, g, dq, dk, dv)),
+                stats[0].data_ptr(), stats[1].data_ptr(), BH, k.shape[0], Sq,
+                k.shape[1], hd, int(q.dtype == torch.bfloat16), int(causal),
+                int(window or 0), float(scale), float(softcap or 0.0),
+                torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err}")
+    bwd_launches += 2
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
-    """The kernel forward; the backward recomputes the plain version
-    (`ref.flash_attention_ref`) on the saved q, k and v and returns its
-    gradients."""
+    """The forward kernel; the backward kernels (`flash_attention_bwd`)
+    on the saved q, k, v and output."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
         kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        out = _forward(q, k, v, **kw)
         ctx.kw = kw
-        ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        want = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_(w)
-                   for t, w in zip(ctx.saved_tensors, want)]
-            out = ref.flash_attention_ref(*qkv, **ctx.kw)
-            grads = iter(torch.autograd.grad(
-                out, [t for t, w in zip(qkv, want) if w], g))
-        return (*(next(grads) if w else None for w in want),
+        q, k, v, out = ctx.saved_tensors   # once: remat unpacks once
+        g = g.contiguous()
+        if g.data_ptr() % 16:              # the kernels read 16-byte rows
+            g = g.clone()
+        grads = flash_attention_bwd(q, k, v, out, g, **ctx.kw)
+        return (*(d if w else None
+                  for d, w in zip(grads, ctx.needs_input_grad[:3])),
                 None, None, None, None)
 
 

@@ -30,13 +30,21 @@ an active op counter (`launch.opanalysis`) each call records the
 kernel's FLOPs and bytes (`work.scan_work`), whatever the device, and the
 counter does not count the wrapper's own ops.
 
-Gradients: the kernel has no backward, nor has the reference's Pallas
-kernel. With gradients on, a call goes through `MambaScan`, a
+Gradients: the reference's Pallas kernel has no VJP (its LMs train
+through jnp autodiff of the plain oracle's `lax.scan`); here the backward
+is a kernel too. With gradients on, a call goes through `MambaScan`, a
 `torch.autograd.Function` whose forward launches the kernel (with D and
-h0; its plain version on the CPU) and keeps its inputs, and whose
-backward runs the plain version again on them (plus x·D) under autograd
-and returns the gradients of x, dt, A, Bs, Cs, D and h0. That plain
-backward is a Python loop over the S steps, each a few small launches.
+h0) and keeps its inputs, and whose backward (`mamba_scan_bwd`) launches
+the two kernels of csrc/mamba_scan_bwd.cu: a reverse scan in the forward
+kernel's layout (a forward pass keeps h at chunk boundaries in a scratch
+tensor, then each chunk, last first, recomputes its states from its
+boundary, rounded as the forward rounds them, and carries dh back),
+whose blocks write partial sums of dB, dC, dA and dD, and a second launch
+that adds the partials in a fixed order: no atomics, repeatable bit for
+bit. It returns the gradients of x, dt, A, Bs, Cs, D and h0. For CPU
+tensors it runs the plain backward `ref.mamba_scan_bwd_ref`, for `meta`
+ones it returns the empty fakes; under an op counter it records
+`work.scan_bwd_work`. `bwd_launches` counts its launches, two a call.
 """
 from __future__ import annotations
 
@@ -50,6 +58,10 @@ from repro_torch.launch import opanalysis
 STATES = (4, 8, 16, 32)   # the kernel's state sizes N
 
 launches = 0              # kernel launches (not plain-version calls)
+bwd_launches = 0          # backward kernel launches, two a call
+# the backward kernel's kT and kCh (csrc/mamba_scan_bwd.cu), which size
+# its scratch: steps between the states it keeps, channels a block
+CHUNK, CHANNELS = 16, 32
 
 
 def _check(x, dt, A, Bs, Cs, D=None, h0=None):
@@ -129,10 +141,61 @@ def _plain(x, dt, A, Bs, Cs, D, h0):
     return (y if D is None else y + x * D), h
 
 
+def _bwd_library():
+    from repro_torch.kernels import build
+    fn = build.load("mamba_scan_bwd").mamba_scan_backward
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def mamba_scan_bwd(x, dt, A, Bs, Cs, D, h0, gy, gh):
+    """The backward kernel's function on checked tensors (`mamba_scan`'s
+    inputs; gy (B, S, di) and gh (B, di, N), the cotangents of y and
+    h_last, each fp32 and contiguous or None): (dx, ddt, dA, dB, dC, dD,
+    dh0), fp32, dD None without D and dh0 None without h0. Two counted
+    launches on CUDA, the plain backward on the CPU, empty fakes on
+    `meta`; recorded for an active op counter."""
+    global bwd_launches
+    B, S, di = x.shape
+    N = A.shape[1]
+    cost = work.scan_bwd_work(B, S, di, N, skip=D is not None,
+                              h0=h0 is not None, gy=gy is not None,
+                              gh=gh is not None)
+    with opanalysis.kernel("mamba_scan_bwd", cost[1], cost[0]):
+        if x.device.type == "cpu":
+            return ref.mamba_scan_bwd_ref(x, dt, A, Bs, Cs, D, h0, gy, gh)
+        grads = [torch.empty_like(t) for t in (x, dt, A, Bs, Cs)]
+        grads += [None if t is None else torch.empty_like(t)
+                  for t in (D, h0)]
+        if x.device.type == "meta":
+            return tuple(grads)
+        chunks = -(-S // CHUNK)
+        blocks = -(-di // CHANNELS)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        states = torch.empty((B, chunks, di, N), **f32)
+        part_bc = torch.empty((blocks, 2, B, S, N), **f32)
+        part_ad = torch.empty((B, di * (N + 1)), **f32)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+        with torch.cuda.device(x.device):
+            err = _bwd_library()(
+                *(ptr(t) for t in (x, dt, A, Bs, Cs, D, h0, gy, gh,
+                                   *grads, states, part_bc, part_ad)),
+                B, S, di, N, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mamba_scan backward launch failed: CUDA error "
+                           f"{err}")
+    bwd_launches += 2
+    return tuple(grads)
+
+
 class MambaScan(torch.autograd.Function):
-    """The kernel forward; the backward recomputes the plain version on
-    the saved inputs and returns its gradients (None where an input is
-    absent or needs none)."""
+    """The forward kernel; the backward kernels (`mamba_scan_bwd`) on the
+    saved inputs (None where an input is absent or needs no gradient)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bs, Cs, D, h0):
@@ -143,17 +206,10 @@ class MambaScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gh):
         saved = ctx.saved_tensors       # once: a remat checkpoint unpacks once
-        want = [w and t is not None
-                for t, w in zip(saved, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            ins = [None if t is None else t.detach().requires_grad_(w)
-                   for t, w in zip(saved, want)]
-            outs = [(o, g) for o, g in zip(_plain(*ins), (gy, gh))
-                    if g is not None]
-            grads = iter(torch.autograd.grad(
-                [o for o, _ in outs], [t for t, w in zip(ins, want) if w],
-                [g for _, g in outs], allow_unused=True))
-        return tuple(next(grads) if w else None for w in want)
+        grads = mamba_scan_bwd(*saved, *(None if g is None else g.contiguous()
+                                         for g in (gy, gh)))
+        return tuple(d if w and t is not None else None
+                     for d, t, w in zip(grads, saved, ctx.needs_input_grad))
 
 
 def mamba_scan(x, dt, A, Bs, Cs, D=None, h0=None):

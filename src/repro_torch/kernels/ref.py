@@ -5,6 +5,10 @@ any device.
 `flash_attention_ref`, `mamba_scan_ref` and `tree_conv_ref` keep the
 reference oracles' signatures and semantics (the allclose ground truth);
 `flash_attention_ref` also takes GQA k/v, as the kernel does.
+`flash_attention_bwd_ref` and `mamba_scan_bwd_ref` are the plain versions
+of the two backward kernels: the cotangents of those oracles' inputs (the
+reference differentiates its oracles with autodiff; the tests hold these
+to `jax.vjp` of them).
 `flash_attention_split_ref` is the attention decode kernel's algorithm
 (key splits, then a log-sum-exp merge), and `mamba_scan_lanes_ref` the
 scan kernel's order of sums (states split over lanes, then a butterfly
@@ -27,6 +31,18 @@ import torch.nn.functional as F
 from repro_torch.core import prng
 
 
+def _mask(Sq, Sk, causal, window, device):
+    """(Sq, Sk) allowed pairs, queries right-aligned against the keys."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window and window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
                         scale=None):
     """q: (BH, Sq, hd), k/v: (BKV, Sk, hd) with BH % BKV == 0; query row b
@@ -41,14 +57,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if softcap and softcap > 0:
         s = softcap * torch.tanh(s / softcap)
-    Sq, Sk = q.shape[1], k.shape[1]
-    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window and window > 0:
-        mask &= kpos > qpos - window
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
     s = s.masked_fill(~mask, -torch.inf)
     p = torch.softmax(s, dim=-1).nan_to_num(nan=0.0)   # fully-masked -> 0
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
@@ -64,14 +73,7 @@ def _scores(q, k, *, causal, window, softcap, scale):
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if softcap and softcap > 0:
         s = softcap * torch.tanh(s / softcap)
-    Sq, Sk = q.shape[1], k.shape[1]
-    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window and window > 0:
-        mask &= kpos > qpos - window
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
     return s.masked_fill(~mask, -torch.inf)
 
 
@@ -125,6 +127,45 @@ def flash_attention_split_ref(q, k, v, *, causal=True, window=0,
     return out.to(q.dtype)
 
 
+def flash_attention_bwd_ref(q, k, v, out, g, *, causal=True, window=0,
+                            softcap=0.0, scale=None):
+    """Plain version of the attention backward kernel: the cotangents
+    (dq, dk, dv) of `flash_attention_ref`'s inputs for the cotangent g of
+    its output `out`, by the flash algorithm in fp32: each row's
+    logsumexp, D = rowsum(g * out), P recomputed, dV = P^T g, dP = g V^T,
+    dS = P (dP - D) times the softcap's 1 - tanh^2, dQ = scale dS K,
+    dK = scale dS^T Q; dK and dV summed over each GQA group of query
+    heads. A row with no allowed key passes nothing back. Each gradient
+    in its input's dtype."""
+    BH, Sq, hd = q.shape
+    BKV, Sk, _ = k.shape
+    G = BH // BKV
+    scale = (hd ** -0.5) if scale is None else scale
+    qf, gf = q.float(), g.float()
+    kf = k.float().repeat_interleave(G, dim=0)
+    vf = v.float().repeat_interleave(G, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    fac = None
+    if softcap and softcap > 0:
+        t = torch.tanh(s / softcap)
+        s, fac = softcap * t, 1.0 - t * t
+    mask = _mask(Sq, Sk, causal, window, q.device)
+    s = s.masked_fill(~mask, -torch.inf)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    lse = torch.where(torch.isinf(lse), 0.0, lse)
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    delta = (gf * out.float()).sum(-1, keepdim=True)
+    dv = torch.einsum("bqk,bqd->bkd", p, gf)
+    ds = p * (torch.einsum("bqd,bkd->bqk", gf, vf) - delta)
+    if fac is not None:
+        ds = ds * fac
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dk = dk.view(BKV, G, Sk, hd).sum(1)
+    dv = dv.view(BKV, G, Sk, hd).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def mamba_scan_ref(x, dt, A, Bs, Cs, h0=None):
     """Sequential selective-scan oracle.
     x/dt: (B, S, di); Bs/Cs: (B, S, N); A: (di, N); h0: (B, di, N).
@@ -144,6 +185,55 @@ def mamba_scan_ref(x, dt, A, Bs, Cs, h0=None):
         h = a * h + b
         ys.append(torch.einsum("bdn,bn->bd", h, Cs_[t]))
     return torch.stack(ys, dim=1), h
+
+
+def mamba_scan_bwd_ref(x, dt, A, Bs, Cs, D, h0, gy, gh):
+    """Plain version of the scan backward kernel: the cotangents of
+    `mamba_scan_ref`'s inputs, plus the skip term's (y + x·D with D
+    given), for the cotangents gy (B, S, di) of y and gh (B, di, N) of
+    h_last, either of which may be None (no cotangent). A forward keeps
+    every state, then a reverse loop in time carries dh back:
+    dh += gy_t C_t, dC_t = Σ_d gy_t h_t, dB_t = Σ_d dh (dt_t x_t),
+    d(dt·A) = dh h_{t-1} a_t, dh *= a_t. Returns (dx, ddt, dA, dB, dC, dD,
+    dh0), fp32; dD None without D, dh0 None without h0."""
+    B, S, di = x.shape
+    A = A.float()
+    xs, dts, Bs_, Cs_ = (t.float().unbind(1) for t in (x, dt, Bs, Cs))
+    gys = None if gy is None else gy.float().unbind(1)
+    h = (torch.zeros((B, di, A.shape[1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    hs, decays = [h], []
+    for t in range(S):
+        a = torch.exp(dts[t][..., None] * A)
+        h = a * h + (dts[t] * xs[t])[..., None] * Bs_[t][:, None, :]
+        hs.append(h)
+        decays.append(a)
+    dh = torch.zeros_like(h) if gh is None else gh.float()
+    dA = torch.zeros_like(A)
+    dx, ddt, dB, dC = [None] * S, [None] * S, [None] * S, [None] * S
+    for t in reversed(range(S)):
+        if gys is not None:
+            dh = dh + gys[t][..., None] * Cs_[t][:, None, :]
+            dC[t] = torch.einsum("bdn,bd->bn", hs[t + 1], gys[t])
+        else:
+            dC[t] = torch.zeros_like(Cs_[t])
+        dB[t] = torch.einsum("bdn,bd->bn", dh, dts[t] * xs[t])
+        u = torch.einsum("bdn,bn->bd", dh, Bs_[t])       # d(dt_t x_t)
+        g_dta = dh * hs[t] * decays[t]                   # d(dt_t A)
+        ddt[t] = u * xs[t] + torch.einsum("bdn,dn->bd", g_dta, A)
+        dx[t] = u * dts[t]
+        dA = dA + torch.einsum("bdn,bd->dn", g_dta, dts[t])
+        dh = dh * decays[t]
+    dx, ddt = torch.stack(dx, 1), torch.stack(ddt, 1)
+    dD = None
+    if D is not None:
+        if gy is None:
+            dD = torch.zeros_like(D, dtype=torch.float32)
+        else:
+            dx = dx + gy.float() * D.float()
+            dD = (gy.float() * x.float()).sum((0, 1))
+    return (dx, ddt, dA, torch.stack(dB, 1), torch.stack(dC, 1), dD,
+            None if h0 is None else dh)
 
 
 def mamba_scan_lanes_ref(x, dt, A, Bs, Cs, *, lanes):

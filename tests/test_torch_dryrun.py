@@ -119,8 +119,9 @@ def test_meta_count_equals_cpu_count(arch):
     assert mmeta == mcpu
     name = "flash_attention" if arch == "qwen3-8b" else "mamba_scan"
     layers = cfg.n_superblocks * len(cfg.block_pattern)
-    # the forward and the remat re-forward, a layer
+    # the forward and the remat re-forward, a layer; one backward call
     assert meta.kernel_totals()[name]["calls"] == 2 * layers
+    assert meta.kernel_totals()[name + "_bwd"]["calls"] == layers
 
 
 def test_kernel_wrappers_on_meta():
@@ -158,6 +159,41 @@ def test_kernel_wrappers_on_meta():
         work.attention_work(8, 2, 16, 24, 64, causal=True, window=0,
                             itemsize=2)
     assert flash_attention.launches == 0 and mamba_scan.launches == 0
+
+
+def test_backward_kernels_on_meta():
+    """The two LM backward kernels on `meta` through their Functions:
+    empty gradients of their inputs' shapes and dtypes, one record each
+    (its `kernels.work` formula), no launch and no op counted beside."""
+    def t(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta",
+                           requires_grad=True)
+    q, k, v = (t(8, 16, 64, dtype=torch.bfloat16),
+               t(2, 24, 64, dtype=torch.bfloat16),
+               t(2, 24, 64, dtype=torch.bfloat16))
+    x, dt, A, Bs, Cs, D = (t(2, 8, 32), t(2, 8, 32), t(32, 16), t(2, 8, 16),
+                           t(2, 8, 16), t(32))
+    out = flash_attention.flash_attention(q, k, v, window=4, softcap=30.0)
+    y, _ = mamba_scan.mamba_scan(x, dt, A, Bs, Cs, D=D)
+    with opanalysis.OpCounter() as c:
+        gq, gk, gv = torch.autograd.grad(out, (q, k, v),
+                                         torch.zeros_like(out))
+        gs = torch.autograd.grad(y, (x, dt, A, Bs, Cs, D),
+                                 torch.zeros_like(y))
+    assert [k["name"] for k in c.kernels] == ["flash_attention_bwd",
+                                              "mamba_scan_bwd"] or \
+        [k["name"] for k in c.kernels] == ["mamba_scan_bwd",
+                                           "flash_attention_bwd"]
+    by = {k["name"]: (k["bytes"], k["flops"]) for k in c.kernels}
+    assert by["flash_attention_bwd"] == work.attention_bwd_work(
+        8, 2, 16, 24, 64, causal=True, window=4, itemsize=2)
+    assert by["mamba_scan_bwd"] == work.scan_bwd_work(
+        2, 8, 32, 16, skip=True, h0=False, gy=True, gh=False)
+    assert (gq.shape, gk.shape, gv.dtype) == ((8, 16, 64), (2, 24, 64),
+                                              torch.bfloat16)
+    assert [g.shape for g in gs] == [x.shape, dt.shape, A.shape, Bs.shape,
+                                     Cs.shape, D.shape]
+    assert flash_attention.bwd_launches == 0 and mamba_scan.bwd_launches == 0
 
 
 # ------------------------------------------------------------ run_cell

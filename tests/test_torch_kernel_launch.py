@@ -596,8 +596,17 @@ def test_ops_never_reach_a_plain_version_on_the_card(cuda, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a plain version ran on CUDA tensors")
     for name in ("flash_attention_ref", "mamba_scan_ref",
-                 "tree_conv_batch_ref"):
+                 "tree_conv_batch_ref", "flash_attention_bwd_ref",
+                 "mamba_scan_bwd_ref"):
         monkeypatch.setattr(ref, name, refuse)
+    # a training backward through both Functions
+    q, k, v = (t.to(cuda).requires_grad_(True)
+               for t in _attn(1, 64, 64, 4, 2, 64, torch.bfloat16))
+    scan = [t.to(cuda).requires_grad_(True) for t in _scan(1, 40, 64, 16)]
+    y, h = ops.selective_scan_fused(*scan)
+    loss = ops.mha_flash(q, k, v).float().sum() + y.sum() + h.sum()
+    grads = torch.autograd.grad(loss, [q, k, v, *scan])
+    assert all(g is not None for g in grads)
     with torch.inference_mode():
         q, k, v = (t.to(cuda) for t in _attn(1, 64, 64, 4, 2, 64,
                                                torch.bfloat16))
@@ -677,64 +686,114 @@ def test_ops_kernels_reject_unsupported_widths_on_card(cuda):
 
 
 # --------------------------------------- the kernels' autograd Functions
-# The Functions' backward is the plain version's autograd on the saved
-# inputs, so their input gradients equal plain autograd's on the same
-# inputs and cotangent up to GRAD_RTOL of each gradient's largest |value|
-# (the same ops; a cuBLAS product may take another algorithm). Forward
-# outputs at the one-launch tests' limits.
-GRAD_RTOL = 1e-6
+# The Functions' backward is a pair of kernels. Each gradient is held to
+# the plain backward (`ref.flash_attention_bwd_ref`, `ref.mamba_scan_bwd_ref`)
+# on the same inputs, forward output and cotangent, elementwise within
+# GRAD_ATOL of the gradient's largest |value| plus GRAD_RTOL of the value:
+# in fp32, sums taken in another order and expf against torch's exp; in
+# bf16, the kernel's P and dS rounded to bf16 for the tensor cores (4e-3,
+# chip_smoke.py's ATTN_BWD_LIMITS) and both results rounded to bf16 (one
+# bf16 ulp, 2^-7 |x|).
+GRAD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+GRAD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 
 
 def _grads_close(got, want):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
-        assert float((g.float() - w.float()).abs().max()) <= \
-            GRAD_RTOL * float(w.float().abs().max())
+        atol = GRAD_ATOL[w.dtype] * float(w.float().abs().max())
+        _close(g, w, atol, GRAD_RTOL[w.dtype])
 
 
-@pytest.mark.parametrize("B,S,H,K,hd,window,cap,dtype", [
+def _flat(t):
+    """(B, S, H, hd) -> (B*H, S, hd), contiguous."""
+    B, S, H, hd = t.shape
+    return t.transpose(1, 2).reshape(B * H, S, hd).contiguous()
+
+
+def _unflat(t, B):
+    BH, S, hd = t.shape
+    return t.reshape(B, BH // B, S, hd).transpose(1, 2)
+
+
+ATTN_GRAD_CASES = [
     (1, 1024, 32, 8, 128, 0, 0.0, torch.bfloat16),   # qwen3-8b's layer
     (1, 512, 32, 8, 128, 0, 0.0, torch.float32),
     (1, 512, 16, 8, 128, 256, 50.0, torch.bfloat16),  # gemma2's local layer
     (2, 300, 4, 2, 64, 0, 0.0, torch.bfloat16),       # ragged tiles
-])
+    (2, 77, 4, 1, 32, 20, 0.0, torch.float32),        # hd 32, window
+]
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,window,cap,dtype", ATTN_GRAD_CASES)
 def test_flash_attention_function_gradients(cuda, B, S, H, K, hd, window,
                                             cap, dtype):
-    """mha_flash with gradients on: one kernel launch in the forward and
-    none in the backward; the output within the plain version's limits;
-    dq, dk and dv equal to autograd through the plain version on the same
-    inputs and cotangent."""
+    """mha_flash with gradients on: one forward launch, then the two
+    backward launches and no plain version; the output within the plain
+    version's limits; dq, dk and dv within GRAD_ATOL/GRAD_RTOL of the
+    plain backward on the same inputs, output and cotangent."""
     q, k, v = (t.to(cuda).requires_grad_(True)
                for t in _attn(B, S, S, H, K, hd, dtype, seed=S + H))
     w = torch.randn((B, S, H, hd), device=cuda, generator=torch.Generator(
         cuda).manual_seed(0))
     kw = dict(causal=True, window=window, softcap=cap)
-    before = fa.launches
+    before, bwd_before = fa.launches, fa.bwd_launches
     out = ops.mha_flash(q, k, v, **kw)
     assert fa.launches == before + 1
     got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
-    assert fa.launches == before + 1                     # backward: plain
-    qf, kf, vf = (t.transpose(1, 2).reshape(-1, S, hd) for t in (q, k, v))
+    assert fa.launches == before + 1
+    assert fa.bwd_launches == bwd_before + 2
+    qf, kf, vf = (_flat(t.detach()) for t in (q, k, v))
     want_out = ref.flash_attention_ref(qf, kf, vf, **kw)
-    want = torch.autograd.grad(
-        (want_out.float() * w.transpose(1, 2).reshape(-1, S, hd)).sum(),
-        (q, k, v))
-    want_out = want_out.reshape(B, H, S, hd).transpose(1, 2)
+    want = ref.flash_attention_bwd_ref(qf, kf, vf, _flat(out.detach()),
+                                       _flat(w.to(dtype)), **kw)
+    want = [_unflat(t, B) for t in want]
     torch.cuda.synchronize()
     if dtype == torch.float32:
-        _close(out.detach(), want_out.detach(), 2e-5)
+        _close(out.detach(), _unflat(want_out, B), 2e-5)
     else:
-        _close(out.detach(), want_out.detach(), BF16_ATOL, BF16_RTOL)
+        _close(out.detach(), _unflat(want_out, B), BF16_ATOL, BF16_RTOL)
     _grads_close(got, want)
 
 
+@pytest.mark.parametrize("BH,BKV,Sq,Sk,hd,causal,window,cap,dtype", [
+    (4, 2, 40, 12, 64, True, 0, 0.0, torch.float32),     # Sq > Sk
+    (4, 2, 12, 200, 64, True, 0, 0.0, torch.bfloat16),   # Sq < Sk
+    (6, 3, 70, 90, 32, False, 0, 0.0, torch.float32),    # bidirectional
+    (8, 8, 130, 130, 128, False, 33, 20.0, torch.bfloat16),
+])
+def test_flash_attention_backward_kernel_edges(cuda, BH, BKV, Sq, Sk, hd,
+                                               causal, window, cap, dtype):
+    """`flash_attention_bwd` on the card at right-aligned Sq != Sk (rows
+    with no allowed key give exact zeros), bidirectional and window
+    masks, ragged tiles: within the limits of the plain backward, and a
+    repeat bit-equal."""
+    gen = torch.Generator(cuda).manual_seed(BH + Sq)
+    q, out, g = (torch.randn((BH, Sq, hd), device=cuda, generator=gen)
+                 .to(dtype) for _ in range(3))
+    k, v = (torch.randn((BKV, Sk, hd), device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out = fa.flash_attention(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, g, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, g, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, g, **kw)
+    torch.cuda.synchronize()
+    _grads_close(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if Sq > Sk and causal:
+        assert not got[0][:, :Sq - Sk].any()
+
+
 @pytest.mark.parametrize("with_h0", [False, True])
-@pytest.mark.parametrize("B,S,di,N", [(2, 256, 512, 16), (1, 33, 130, 4)])
+@pytest.mark.parametrize("B,S,di,N", [(2, 256, 512, 16), (1, 33, 130, 4),
+                                      (2, 70, 64, 8), (1, 47, 96, 32)])
 def test_mamba_scan_function_gradients(cuda, B, S, di, N, with_h0):
     """selective_scan_fused with gradients on, with D and, if asked, h0:
-    one launch in the forward and none in the backward; y and h_last
-    within 1e-4; the gradients of x, dt, A, Bs, Cs, D and h0 (through
-    both outputs) equal to autograd through the plain version."""
+    one launch in the forward and the two backward launches; y and
+    h_last within 1e-4; the gradients of x, dt, A, Bs, Cs, D and h0
+    (through both outputs) within SCAN_GRAD_ATOL of the plain backward's
+    largest |value|, and a repeat bit-equal."""
     x, dt, A, Bs, Cs, D = (t.to(cuda) for t in _scan(B, S, di, N, seed=S))
     h0 = torch.randn((B, di, N), device=cuda, generator=torch.Generator(
         cuda).manual_seed(1)) if with_h0 else None
@@ -743,20 +802,45 @@ def test_mamba_scan_function_gradients(cuda, B, S, di, N, with_h0):
     gen = torch.Generator(cuda).manual_seed(2)
     wy = torch.randn((B, S, di), device=cuda, generator=gen)
     wh = torch.randn((B, di, N), device=cuda, generator=gen)
-    before = ms.launches
+    before, bwd_before = ms.launches, ms.bwd_launches
     y, h = ops.selective_scan_fused(*ins[:6], h0=h0)
     assert ms.launches == before + 1
     got = torch.autograd.grad((y * wy).sum() + (h * wh).sum(), ins)
     assert ms.launches == before + 1
-    y_want, h_want = ref.mamba_scan_ref(*ins[:5], h0)
-    y_want = y_want + ins[0] * ins[5]
-    want = torch.autograd.grad((y_want * wy).sum() + (h_want * wh).sum(),
-                               ins)
+    assert ms.bwd_launches == bwd_before + 2
+    plain = [t.detach() for t in ins] + ([] if with_h0 else [None])
+    want = ref.mamba_scan_bwd_ref(*plain, wy, wh)
+    again = ms.mamba_scan_bwd(*plain, wy, wh)
+    y_want, h_want = ref.mamba_scan_ref(*plain[:5], plain[6])
     torch.cuda.synchronize()
-    _close(y.detach(), y_want.detach(), 1e-4)
+    _close(y.detach(), (y_want + ins[0] * ins[5]).detach(), 1e-4)
     _close(h.detach(), h_want.detach(), 1e-4)
-    _grads_close(got, want)
+    for g, w_ in zip(got, want):
+        _close(g, w_, SCAN_GRAD_ATOL * float(w_.abs().max()), 0.0)
     assert all(g.abs().max() > 0 for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again) if b is not None)
+
+
+# the scan backward against its plain version: each gradient within
+# SCAN_GRAD_ATOL of its largest |value| (fp32 sums over the states, the
+# channels and time in other orders; expf against torch's exp)
+SCAN_GRAD_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("gy,gh", [(True, False), (False, True)])
+def test_mamba_scan_backward_kernel_one_cotangent(cuda, gy, gh):
+    """`mamba_scan_bwd` with one of the two cotangents absent (None, as
+    autograd gives it when that output is unused), without D."""
+    x, dt, A, Bs, Cs, _ = (t.to(cuda) for t in _scan(2, 40, 70, 16))
+    gen = torch.Generator(cuda).manual_seed(3)
+    wy = torch.randn((2, 40, 70), device=cuda, generator=gen) if gy else None
+    wh = torch.randn((2, 70, 16), device=cuda, generator=gen) if gh else None
+    got = ms.mamba_scan_bwd(x, dt, A, Bs, Cs, None, None, wy, wh)
+    want = ref.mamba_scan_bwd_ref(x, dt, A, Bs, Cs, None, None, wy, wh)
+    torch.cuda.synchronize()
+    assert got[5] is None and got[6] is None
+    for g, w_ in zip(got[:5], want[:5]):
+        _close(g, w_, SCAN_GRAD_ATOL * float(w_.abs().max()), 0.0)
 
 
 def test_functions_keep_the_inference_path(cuda):
@@ -865,7 +949,7 @@ def test_lm_trains_through_the_kernels(cuda, arch):
     """A reduced arch's loss and gradients (`launch.steps.loss_and_grads`,
     remat on, fp32 compute) on the card: each kernel-route attention
     layer and Mamba layer launches its kernel twice (the forward and the
-    remat re-forward; the backward recomputes the plain version), and
+    remat re-forward) and its backward kernels once (two launches), and
     the loss and every gradient leaf agree with the CPU's plain versions
     (loss to 1e-5, each leaf to 1e-4 of its largest |value|, as the CPU
     tests hold the port to the reference). Then three train steps on the
@@ -886,12 +970,15 @@ def test_lm_trains_through_the_kernels(cuda, arch):
         p = tree_map(lambda t: t.to(dev), params)
         batch = batch_on({"tokens": toks}, cfg, dev)
         fa_before, ms_before = fa.launches, ms.launches
+        fab, msb = fa.bwd_launches, ms.bwd_launches
         (loss, _), grads = loss_and_grads(p, batch, cfg)
         out[dev] = (float(loss), {k: g.cpu() for k, g in flatten(grads)})
         if dev == "cuda":
             torch.cuda.synchronize()
             assert fa.launches - fa_before == 2 * (attn + enc)
             assert ms.launches - ms_before == 2 * mamba
+            assert fa.bwd_launches - fab == 2 * (attn + enc)
+            assert ms.bwd_launches - msb == 2 * mamba
     (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for path, want in gc.items():
@@ -926,6 +1013,7 @@ def test_counted_step_on_card_equals_meta(cuda, arch):
     opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
     batch = {"tokens": torch.zeros((2, 32), dtype=torch.int32, device=cuda)}
     fa0, ms0 = fa.launches, ms.launches
+    fab0, msb0 = fa.bwd_launches, ms.bwd_launches
     card, _, _ = dryrun.count_step(cfg, shape, inputs=(params, opt, batch))
     torch.cuda.synchronize()
     assert (card.flops, card.bytes) == (meta.flops, meta.bytes)
@@ -934,6 +1022,10 @@ def test_counted_step_on_card_equals_meta(cuda, arch):
     assert fa.launches - fa0 == calls.get("flash_attention",
                                           {"calls": 0})["calls"]
     assert ms.launches - ms0 == calls.get("mamba_scan", {"calls": 0})["calls"]
+    for mod, name, before in ((fa, "flash_attention_bwd", fab0),
+                              (ms, "mamba_scan_bwd", msb0)):
+        assert mod.bwd_launches - before == 2 * calls.get(
+            name, {"calls": 0})["calls"]
 
 
 def test_remat_modes_on_the_card(cuda):
