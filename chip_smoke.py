@@ -169,9 +169,18 @@ Phases, each printing one JSON line:
            cotangent; two planted faults (the plain backward without one
            query tile's or one head's cotangent, without the first 32
            channels' or the middle step's) outside those limits; a
-           repeat bit-equal; the kernel's ms beside its bound, the plain
-           backward's ms and, for qwen3-8b, SDPA's backward (forward
-           plus backward less forward, a yardstick only).
+           repeat bit-equal (the bf16 attention backward from the
+           forward kernel's logsumexp, the scan's from its chunk
+           states); the kernel's ms beside its bound, the previous
+           design's ms (`BWD_MS_PREVIOUS`, not re-run), the plain
+           backward's ms and,
+           for qwen3-8b, SDPA's backward (forward plus backward less
+           forward, a yardstick only; the backend its kernels name), for
+           gemma2-27b a compiled `flex_attention`'s backward (its
+           gradients held to the plain backward at the case's limits
+           first). The bf16 attention and scan forward rows add the
+           time with the logsumexp or the chunk states written
+           (`ms_with_lse`, `ms_with_states`), as training calls them.
 
 After the ops phase, the `train_profile` line: the backward kernel's
 device time by torch.profiler at the PPO and DQN shapes, and one PPO
@@ -3214,7 +3223,7 @@ def step_flops(cfg, B, S):
     weight, the head's included, plus attention's 4·hd a causal query and
     key pair a head, three times), and the FLOPs the card runs: the same
     with the remat re-forwards (2 a weight a token more) and attention
-    twice more."""
+    2.5 times more."""
     T = B * S
     layer_w = sum(t.numel() for path, t in flatten(
         lm.init_params(None, cfg, device="meta")["stack"])
@@ -3225,10 +3234,10 @@ def step_flops(cfg, B, S):
     attn = attn_layers * 4 * B * cfg.n_heads * cfg.hd * S * (S + 1) / 2
     model = 6 * (layer_w + head_w) * T + 3 * attn
     # + the superblocks' and the CE chunk's re-forwards; attention's
-    # backward kernels run 8 products where the model counts 4 (QK^T
-    # three times and dO V^T twice, against once each): attention once
-    # more in the re-forward and twice more in the backward
-    return model, model + 2 * (layer_w + head_w) * T + 3 * attn
+    # backward kernels run 7 products where the model counts 4 (QK^T and
+    # dO V^T twice each, against once): attention once more in the
+    # re-forward and 1.5 times more in the backward
+    return model, model + 2 * (layer_w + head_w) * T + 2.5 * attn
 
 
 def train_cell(arch, layers, B, S, steps, bad):
@@ -3304,7 +3313,9 @@ def train_cell(arch, layers, B, S, steps, bad):
            "batch": B, "seq": S, "steps": steps, "lr": TRAIN_LM_LR,
            "losses": losses, "step_s": times, "step_ms_median":
            step_s * 1e3, "tokens_per_s": B * S / step_s,
-           "peak_mem_gb": peak, "launches_per_step": per_step,
+           "peak_mem_gb": peak,
+           "peak_mem_gb_previous": TRAIN_PEAK_GB_PREVIOUS.get(arch),
+           "launches_per_step": per_step,
            "want_launches_per_step": want,
            "model_tflop": model_flops / 1e12,
            "model_tflop_with_remat": remat_flops / 1e12,
@@ -3961,6 +3972,14 @@ ATTN_BWD_LIMITS = {torch.bfloat16: (4e-3, 2.0 ** -7),
                    torch.float32: (1e-5, 0.0)}
 SCAN_BWD_LIMITS = (1e-5, 0.0)
 BWD_TILE = 32              # the dkv kernel's query tile, the scan's block
+# The backward cases' ms with the previous design of the backward kernels
+# (PERF.md §6, rows 3b and 4b: attention on mma.sync with a first pass for
+# the logsumexp, the scan with a forward walk of its own; NVIDIA H100 80GB
+# HBM3, 700 W; not re-run), for each row to stand beside, and the train_lm
+# cells' peak GB then
+BWD_MS_PREVIOUS = {"qwen3-8b/train": 1.89125, "gemma2-27b/local": 18.25726,
+               "falcon-mamba-7b/train": 1.44703, "falcon-mamba-7b": 3.01307}
+TRAIN_PEAK_GB_PREVIOUS = {"qwen3-8b": 59.557, "falcon-mamba-7b": 35.632}
 
 
 def closeness(case, out, want, atol, rtol):
@@ -4169,8 +4188,9 @@ def fault_shares(bads, want, names, limits):
 def attention_bwd_case(case, B, S, H, K, hd, window, cap, gen):
     """One backward case through `mha_flash`'s Function: the gradients
     against the plain backward, two planted faults, a repeat bit-equal,
-    then the kernel's time beside the plain backward's, the bound and
-    SDPA's backward."""
+    then the kernel's time beside the plain backward's, the bound, the
+    previous design's and SDPA's backward (without a window or softcap) or a compiled
+    flex_attention's (with them)."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16)
@@ -4185,6 +4205,11 @@ def attention_bwd_case(case, B, S, H, K, hd, window, cap, gen):
     qf, kf, vf, of, gf = (flat_heads(t.detach()).contiguous()
                           for t in (q, k, v, out, w))
     got = [flat_heads(g) for g in grads]
+    # the logsumexp the Function saved: the forward kernel's again
+    of2, lse = fa._forward(qf, kf, vf, **kw, scale=None, return_lse=True)
+    if not torch.equal(of2, of):
+        raise AssertionError(f"{case}: the forward kernel is not "
+                             f"repeatable")
     want = attention_bwd_plain(qf, kf, vf, of, gf, **kw)
     names, limits = ("dq", "dk", "dv"), ATTN_BWD_LIMITS[torch.bfloat16]
     rows = grads_rows(case, names, got, want, limits)
@@ -4197,15 +4222,15 @@ def attention_bwd_case(case, B, S, H, K, hd, window, cap, gen):
          for n, g in (("first_q_tile", first_tile),
                       ("one_head_of_each_group", one_head))},
         want, names, limits)
-    again = [fa.flash_attention_bwd(qf, kf, vf, of, gf, **kw)
+    again = [fa.flash_attention_bwd(qf, kf, vf, of, gf, lse, **kw)
              for _ in range(2)]
     repeat = all(torch.equal(a.contiguous(), b) and torch.equal(b, c)
                  for a, b, c in zip(got, *again))
     ms_kernel = cuda_ms(lambda: fa.flash_attention_bwd(qf, kf, vf, of, gf,
-                                                       **kw),
+                                                       lse, **kw),
                         launches=3, reps=5, warmup=2)
     by_kernel = median_by_kernel(
-        lambda: fa.flash_attention_bwd(qf, kf, vf, of, gf, **kw))
+        lambda: fa.flash_attention_bwd(qf, kf, vf, of, gf, lse, **kw))
     plain = cuda_ms(lambda: attention_bwd_plain(qf, kf, vf, of, gf, **kw),
                     launches=1, reps=3, warmup=1)
     pairs = work.allowed_pairs(S, S, True, window)
@@ -4218,11 +4243,12 @@ def attention_bwd_case(case, B, S, H, K, hd, window, cap, gen):
            "launches": launched, "ms": ms_kernel,
            "device_ms_by_kernel": by_kernel or None, "plain_ms": plain,
            **work.bound(n_bytes, flops, BF16_FLOPS),
-           # the function's one exp a pair; the kernel takes three
+           # the function's one exp a pair; the kernels take two
            "sfu_ms": sfu_ms(pairs * B * H),
-           # the kernels' 8 products (QK^T three times, g V^T twice)
-           "kernel_tflop_per_s": 8 * 2 * hd * pairs * B * H / ms_kernel / 1e9,
+           # the kernels' 7 products (QK^T and dO V^T twice each)
+           "kernel_tflop_per_s": 7 * 2 * hd * pairs * B * H / ms_kernel / 1e9,
            "tflop_per_s": flops / ms_kernel / 1e9,
+           "ms_previous": BWD_MS_PREVIOUS.get(case),
            "max_abs_err": max(r["max_abs_err"] for r in rows),
            "worst": max(rows, key=lambda r: r["limit_share"]),
            "planted_limit_share": faults, "repeat_bit_equal": repeat,
@@ -4231,6 +4257,12 @@ def attention_bwd_case(case, B, S, H, K, hd, window, cap, gen):
     row["kernel_over_bound"] = ms_kernel / row["bound_ms"]
     if window == 0 and cap == 0.0:
         row.update(sdpa_bwd(qf, kf, vf, gf, B, want))
+    else:
+        row.update(flex_bwd(case, qf, kf, vf, gf, B, want, kw))
+    if row["library_ms"] is not None:
+        row["kernel_over_library"] = ms_kernel / row["library_ms"]
+    if row["ms_previous"] is not None:
+        row["previous_over_kernel"] = row["ms_previous"] / ms_kernel
     row["ok"] = (all(r["ok"] for r in rows) and repeat
                  and min(faults.values()) > 1
                  and launched == {"flash_attention": 1,
@@ -4262,12 +4294,83 @@ def sdpa_bwd(qf, kf, vf, gf, B, want):
                          .max()) for a, b in zip(grads, want))
         both = cuda_ms(fwd_bwd, launches=3, warmup=2)
         alone = cuda_ms(fwd, launches=3, warmup=2)
+        names = sorted({n[:80] for n, _ in device_kernels(fwd_bwd)})
     except Exception as e:           # the cell says why, in place of a time
         return {"library_ms": None, "library_note": f"{note} could not run: "
                 f"{type(e).__name__}: {str(e)[:300]}"}
     return {"library_ms": both - alone, "library_fwd_bwd_ms": both,
             "library_fwd_ms": alone, "library_max_abs_diff": diff,
-            "library_note": note}
+            "library_note": note, "library_backend": sdpa_backend(names),
+            "library_kernels": names}
+
+
+def sdpa_backend(names):
+    """The SDPA backend a profiled call ran, from its device kernels'
+    names: cuDNN, flash, memory-efficient, or the math path (none of
+    those: plain GEMMs and softmax)."""
+    low = [n.lower() for n in names]
+    for backend, marks in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                           ("efficient", ("efficient", "mem_eff", "fmha"))):
+        if any(m in n for n in low for m in marks):
+            return backend
+    return "math"
+
+
+def flex_bwd(case, qf, kf, vf, gf, B, want, kw):
+    """A compiled `flex_attention`'s backward as a yardstick for a
+    windowed, softcapped case (the port never calls it): the softcap as
+    score_mod, the sliding-window causal block mask, enable_gqa; timed as
+    forward plus backward less the forward, after its compile. Its
+    gradients are held to the plain backward at the case's own limits
+    first: outside them, or if it cannot run here, library_ms is None and
+    the note says why."""
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    S, hd = qf.shape[1], qf.shape[2]
+    cap, window = kw["softcap"], kw["window"]
+    q4, k4, v4 = (t.view(B, -1, S, hd).detach().requires_grad_(True)
+                  for t in (qf, kf, vf))
+    g4 = gf.view(q4.shape)
+    score_mod, mask_mod = flex_mods(cap, window, S, S)
+    note = (f"flex_attention(score_mod=softcap {cap}, block_mask=causal "
+            f"window {window}, enable_gqa=True), torch.compile'd, forward "
+            f"+ backward less the forward")
+    threads = inductor_config.compile_threads
+    inductor_config.compile_threads = 1          # no pool of compile workers
+    try:
+        mask = create_block_mask(mask_mod, None, None, S, S, device="cuda")
+        compiled = torch.compile(flex_attention)
+
+        def fwd():
+            return compiled(q4, k4, v4, score_mod=score_mod, block_mask=mask,
+                            enable_gqa=True)
+
+        def fwd_bwd():
+            return torch.autograd.grad(fwd(), (q4, k4, v4), g4)
+        t0 = time.perf_counter()
+        grads = [g.reshape(w.shape) for g, w in zip(fwd_bwd(), want)]
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        held = grads_rows(f"{case}/flex", ("dq", "dk", "dv"), grads, want,
+                          ATTN_BWD_LIMITS[torch.bfloat16])
+        row = {"library_note": note, "library_compile_s": compile_s,
+               "library_vs_plain": held,
+               "library_max_abs_diff": max(r["max_abs_err"] for r in held)}
+        if not all(r["ok"] for r in held):
+            return {**row, "library_ms": None,
+                    "library_note": f"{note} is outside the case's limits "
+                                    f"against the plain backward"}
+        both = cuda_ms(fwd_bwd, launches=3, reps=3, warmup=2)
+        alone = cuda_ms(fwd, launches=3, reps=3, warmup=2)
+        return {**row, "library_ms": both - alone,
+                "library_fwd_bwd_ms": both, "library_fwd_ms": alone}
+    except Exception as e:           # the cell says why, in place of a time
+        return {"library_ms": None,
+                "library_note": f"{note} could not run: "
+                                f"{type(e).__name__}: {str(e)[:300]}"}
+    finally:
+        inductor_config.compile_threads = threads
 
 
 def scan_bwd_case(case, B, S, di, N, full, gen):
@@ -4307,12 +4410,15 @@ def scan_bwd_case(case, B, S, di, N, full, gen):
         {"first_block": ref.mamba_scan_bwd_ref(*plain, first_block, gh_block),
          "one_step": ref.mamba_scan_bwd_ref(*plain, one_step, gh)},
         want, names, SCAN_BWD_LIMITS)
-    again = [ms.mamba_scan_bwd(*plain, gy, gh) for _ in range(2)]
+    # the chunk states the Function saved: the forward kernel's again
+    states = ms._forward(*plain, with_states=True)[2]
+    again = [ms.mamba_scan_bwd(*plain, gy, gh, states) for _ in range(2)]
     repeat = all(torch.equal(a, b) and torch.equal(b, c)
                  for a, b, c in zip(grads, *again))
-    ms_kernel = cuda_ms(lambda: ms.mamba_scan_bwd(*plain, gy, gh),
+    ms_kernel = cuda_ms(lambda: ms.mamba_scan_bwd(*plain, gy, gh, states),
                         launches=3, reps=5, warmup=2)
-    by_kernel = median_by_kernel(lambda: ms.mamba_scan_bwd(*plain, gy, gh))
+    by_kernel = median_by_kernel(
+        lambda: ms.mamba_scan_bwd(*plain, gy, gh, states))
     plain_ms = cuda_ms(lambda: ref.mamba_scan_bwd_ref(*plain, gy, gh),
                        launches=1, reps=3, warmup=1)
     n_bytes, flops = work.scan_bwd_work(B, S, di, N, skip=True, h0=full,
@@ -4323,14 +4429,17 @@ def scan_bwd_case(case, B, S, di, N, full, gen):
            "launches": launched, "ms": ms_kernel,
            "device_ms_by_kernel": by_kernel or None, "plain_ms": plain_ms,
            **work.bound(n_bytes, flops, FP32_FLOPS),
-           # the function's one exp a (b, t, d, n); the kernel takes two
+           # the function's one exp a (b, t, d, n), as the kernel takes
            "sfu_ms": sfu_ms(B * S * di * N),
            "tb_per_s": n_bytes / ms_kernel / 1e9,
+           "ms_previous": BWD_MS_PREVIOUS.get(case),
            "max_abs_err": max(r["max_abs_err"] for r in rows),
            "worst": max(rows, key=lambda r: r["limit_share"]),
            "planted_limit_share": faults, "repeat_bit_equal": repeat,
            "library_ms": None, "library_note": "none"}
     row["kernel_over_bound"] = ms_kernel / row["bound_ms"]
+    if row["ms_previous"] is not None:
+        row["previous_over_kernel"] = row["ms_previous"] / ms_kernel
     row["ok"] = (all(r["ok"] for r in rows) and repeat
                  and min(faults.values()) > 1
                  and launched == {"mamba_scan": 1, "mamba_scan_bwd": 2})
@@ -4382,6 +4491,12 @@ def attention_row(a):
     ms_kernel = cuda_ms(lambda: fa._launch(qf, kf, vf, dst, scale=None,
                                            **a["kw"]),
                         launches=5, warmup=3)
+    # the training forward: each row's logsumexp written too (bf16 paths)
+    lse = (torch.empty(qf.shape[:2], dtype=torch.float32, device="cuda")
+           if a["dtype"] == torch.bfloat16 else None)
+    ms_lse = None if lse is None else cuda_ms(
+        lambda: fa._launch(qf, kf, vf, dst, lse, scale=None, **a["kw"]),
+        launches=5, warmup=3)
     plain = cuda_ms(lambda: attention_plain(qf, kf, vf, **a["kw"]),
                     launches=1, reps=3, warmup=1)
     Sk = kf.shape[1]
@@ -4396,6 +4511,7 @@ def attention_row(a):
            "q": list(a["args"][0].shape), "kv": list(a["args"][1].shape),
            **a["kw"], "dtype": str(a["dtype"]),
            "allowed_pairs_per_head": pairs, "ms": ms_kernel,
+           "ms_with_lse": ms_lse,
            "plain_ms": plain, **work.bound(n_bytes, flops, peak),
            "sfu_ms": sfu_ms(pairs * B * H),
            "tflop_per_s": flops / ms_kernel / 1e9,
@@ -4429,6 +4545,21 @@ def attention_row(a):
     return row
 
 
+def flex_mods(cap, window, Sq, Sk):
+    """flex_attention's score_mod (the softcap) and mask_mod (causal,
+    right-aligned, the sliding window) for a gemma2 case."""
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        qpos = q_idx + (Sk - Sq)
+        keep = kv_idx <= qpos
+        if window > 0:
+            keep = keep & (kv_idx > qpos - window)
+        return keep
+    return score_mod, mask_mod
+
+
 def flex_library(a, qf, kf, vf, out):
     """The time of one compiled `flex_attention` call on case `a`'s
     inputs (softcap as score_mod, the sliding-window causal block mask,
@@ -4442,16 +4573,7 @@ def flex_library(a, qf, kf, vf, out):
     B, Sq, _, hd = a["args"][0].shape
     Sk, cap, window = kf.shape[1], kw["softcap"], kw["window"]
     q4, k4, v4 = (t.view(B, -1, t.shape[1], hd) for t in (qf, kf, vf))
-
-    def score_mod(score, b, h, q_idx, kv_idx):
-        return cap * torch.tanh(score / cap)
-
-    def mask_mod(b, h, q_idx, kv_idx):
-        qpos = q_idx + (Sk - Sq)
-        keep = kv_idx <= qpos
-        if window > 0:
-            keep = keep & (kv_idx > qpos - window)
-        return keep
+    score_mod, mask_mod = flex_mods(cap, window, Sq, Sk)
     note = (f"flex_attention(score_mod=softcap {cap}, block_mask=causal "
             f"window {window}, enable_gqa=True), torch.compile'd")
     threads = inductor_config.compile_threads
@@ -4548,6 +4670,12 @@ def scan_row(case, scan):
                          device=x.device)
     ms_kernel = cuda_ms(lambda: ms._launch(x, dt, A, Bs, Cs, y, h_last, D),
                         launches=5, warmup=3)
+    # the training forward: the chunk states written too
+    states = torch.empty((x.shape[0], -(-x.shape[1] // ms.CHUNK), x.shape[2],
+                          A.shape[1]), device=x.device)
+    ms_states = cuda_ms(lambda: ms._launch(x, dt, A, Bs, Cs, y, h_last, D,
+                                           None, states),
+                        launches=5, warmup=3)
     dev_ms = device_ms(lambda: ms._launch(x, dt, A, Bs, Cs, y, h_last, D),
                        calls=5)
     op_ms = cuda_ms(lambda: ops.selective_scan_fused(*scan), launches=5,
@@ -4562,7 +4690,7 @@ def scan_row(case, scan):
     return {"case": case, "entry": "selective_scan_fused",
             "kernel": "mamba_scan", "x": list(x.shape), "A": list(A.shape),
             "dtype": "torch.float32", "ms": ms_kernel, "device_ms": dev_ms,
-            "op_ms": op_ms,
+            "ms_with_states": ms_states, "op_ms": op_ms,
             "device_kernels_per_op": len(kernels),
             "device_kernel_names": sorted(set(k[:60] for k in kernels)),
             "plain_ms": plain, **work.bound(n_bytes, flops, FP32_FLOPS),

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exports a plain C entry point. On first use it is
 compiled for Hopper into `build/kernels/lib<name>-<digest>.so` under the
-repository root; the digest covers the source and the flags, so an edited
-source builds anew and an unchanged one is reused. `build()` starts one
+repository root; the digest covers the source, every header in `csrc/`
+(`hopper.cuh`, which the attention sources include) and the flags, so an
+edited source or header builds anew and an unchanged one is reused. `build()` starts one
 nvcc per missing source, all at once, and waits for every one of them.
 """
 from __future__ import annotations
@@ -43,6 +44,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -11,7 +11,13 @@
 // accumulator; a key tile with no allowed key is never visited, so a
 // sliding window costs O(Sq * window); a row with no allowed key gives 0.
 // The output is in q's dtype. The caller picks one of three kernels
-// (flash_attention.py::kernel_path) and launches it once per call.
+// (flash_attention.py::kernel_path) and launches it once per call. For
+// training, the bf16 kernels also write each row's logsumexp (an optional
+// (BH, Sq) fp32 pointer; natural log, of the scores as the softmax takes
+// them; +inf on a row with no allowed key), which the backward kernels
+// (csrc/flash_attention_bwd.cu) read in place of a pass of their own; the
+// serving path passes null and writes nothing more. The mbarrier, TMA and
+// wgmma helpers are csrc/hopper.cuh's, shared with the backward.
 //
 // Bound on an H100. Prefill is bound by operations: at qwen3-8b (Sq = Sk =
 // 4096, 32 heads, hd 128, causal) a call does 4 * hd flops for each of the
@@ -51,19 +57,20 @@
 // row strides, each thread holds a 4 x 2 tile of S and a 4 x hd/16 tile of
 // O, and every product is an fp32 FMA: no tensor cores, no TF32.
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using namespace hopper;
+
 constexpr float kNeg = -1e30f;                   // a masked score (fp32)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -71,6 +78,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                                    // (BH, Sq) or null
   int Sq, Sk, G;
   int causal, window;
   float scale, softcap;
@@ -117,12 +125,6 @@ __device__ __forceinline__ float cap(const Params& p, float s) {
   return p.softcap > 0.f ? p.softcap * tanhf(s / p.softcap) : s;
 }
 
-__device__ __forceinline__ float tanh_approx(float x) {  // rel. err 2^-11
-  float y;
-  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // bf16 paths: the score in log2 units, log2 e * cap(scale * s). The
 // kernels take CAP (softcap > 0) as a template argument, so that the
 // softmax's element loops hold no branch. The tanh is the hardware's
@@ -136,16 +138,17 @@ __device__ __forceinline__ float score2(const Params& p, float s) {
   return s * p.scale_log2;
 }
 
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Folds a new tile's row maximum mx (quad-reduced) into the running max m;
 // returns the factor that rescales the earlier sums and sets mu, the max
 // the new weights are taken against (0 while a row has seen no allowed key,
 // so that exp2(-inf - mu) = 0 and no inf - inf arises).
+// A row's logsumexp in natural-log units from its running max m and sum l
+// in log2 units (l against m): +inf for a row with no allowed key (l = 0),
+// so that the backward's exp(s - lse) is 0 there whatever the mask.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * kLn2 : INFINITY;
+}
+
 __device__ __forceinline__ float fold_max(float& m, float mx, float& mu) {
   mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
   mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
@@ -155,182 +158,6 @@ __device__ __forceinline__ float fold_max(float& m, float mx, float& mu) {
   return alpha;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Keeps the compiler from moving a register's reads or writes across the
-// asynchronous wgmma that reads or writes it.
-__device__ __forceinline__ void keep(float& x) {
-  asm volatile("" : "+f"(x)::"memory");
-}
-__device__ __forceinline__ void keep(uint32_t& x) {
-  asm volatile("" : "+r"(x)::"memory");
-}
-
-// ------------------------------------------------- mbarriers, TMA, wgmma
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-// Waits until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One box of a 3-D tensor map at (c0, c1, c2) into shared memory; the
-// bytes complete on `bar`. Elements outside the tensor read as zeros.
-__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
-                                          uint64_t* bar, int c0, int c1,
-                                          int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets, swizzle (1 = 128 B, 2 = 64 B).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t swz) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | swz << 62;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// The wgmma forms this kernel issues (bf16 in, fp32 accumulate).
-// d (64 x 128, fp32) += a (64 x 16, smem) * b (16 x 128, smem, K-major).
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 32, fp32) += a (64 x 16, registers) * b (16 x 32, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                              const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64, fp32) += a (64 x 16, registers) * b (16 x 64, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 128, fp32) += a (64 x 16, registers) * b (16 x 128, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-
 // ----------------------------------------------------- bf16 prefill, wgmma
 constexpr int kWQ = 128;                         // query rows per block
 constexpr int kWK = 128;                         // keys per tile
@@ -338,17 +165,13 @@ constexpr int kWStages = 2;                      // k/v ring depth
 constexpr int kWThreads = 384;                   // 2 consumer + 1 producer WG
 constexpr int kConsumers = 256;
 
-// Shared-memory layout of one 128-row tile (q, k or v): hd split into
-// chunks of CW columns, each chunk 128 rows of PITCH bytes, swizzled.
+// Shared-memory layout of one 128-row tile (q, k or v), as hopper::Tile
+// lays it out: hd split into chunks of CW columns, each chunk 128 rows of
+// PITCH bytes, swizzled.
 template <int HD>
-struct WLayout {
-  static constexpr int CW = HD < 64 ? HD : 64;
-  static constexpr int NCH = HD / CW;
-  static constexpr int PITCH = CW * 2;
-  static constexpr int CHUNK = 128 * PITCH;
-  static constexpr int TILE = NCH * CHUNK;
-  static constexpr uint64_t SWZ = CW == 64 ? 1 : 2;   // 128 B or 64 B
-  static constexpr int SBO = 8 * PITCH;               // next 8 rows
+struct WLayout : Tile<HD, kWQ> {
+  static_assert(kWQ == kWK, "q and k/v tiles share one layout");
+  static constexpr int TILE = Tile<HD, kWQ>::BYTES;
   // q, the k and v stages, mbarriers, 1024 B to align the base
   static constexpr int SMEM = (1 + 2 * kWStages) * TILE + 256 + 1024;
 };
@@ -378,9 +201,7 @@ __device__ __forceinline__ void pv_issue(float (&o)[HD / 2],
   for (int kk = 0; kk < kWK / 16; ++kk) {
     const uint64_t d =
         gmma_desc(v + kk * 16 * L::PITCH, L::CHUNK, L::SBO, L::SWZ);
-    if constexpr (HD == 128) wgmma_rs_n128(o, pf + 4 * kk, d);
-    if constexpr (HD == 64) wgmma_rs_n64(o, pf + 4 * kk, d);
-    if constexpr (HD == 32) wgmma_rs_n32(o, pf + 4 * kk, d);
+    wgmma_rs<HD>(o, pf + 4 * kk, d);
   }
 }
 
@@ -587,6 +408,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
       const int r = r0 + 8 * i;
       if (r < p.Sq) {
+        if (p.lse != nullptr && t == 0)
+          p.lse[static_cast<size_t>(bh) * p.Sq + r] = row_lse(m[i], l[i]);
 #pragma unroll
         for (int j = 0; j < HD / 8; ++j)
           *reinterpret_cast<uint32_t*>(O + static_cast<size_t>(r) * HD +
@@ -866,6 +689,8 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
     }
     O[static_cast<size_t>(r) * HD + c] =
         __float2bfloat16_rn(sl > 0.f ? so / sl : 0.f);
+    if (p.lse != nullptr && c == 0)              // split 0's first column
+      p.lse[static_cast<size_t>(kv) * R + r] = row_lse(M, sl);
   }
   cluster.sync();                                // no block leaves while
 }                                                // another reads its memory
@@ -1008,53 +833,6 @@ __global__ void __launch_bounds__(kT32 * kT32) flash_f32_kernel(Params p) {
 }
 
 // ------------------------------------------------------------------ launch
-// Opts `kernel` into `smem` bytes of dynamic shared memory once.
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem, bool& opted) {
-  if (!opted && smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  opted = true;
-  return cudaSuccess;
-}
-
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
-// A (hd, S, rows) bf16 tensor map with boxes of (CW, 128, 1), swizzled as
-// the wgmma descriptors read them.
-template <int HD>
-bool tensor_map(CUtensorMap* map, const void* ptr, int S, int rows) {
-  using L = WLayout<HD>;
-  const auto encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {HD, static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {HD * 2ull, HD * 2ull * S};
-  const cuuint32_t box[3] = {L::CW, 128, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                L::CW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                            : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 enum Path { kPathF32 = 0, kPathWgmma = 1, kPathDecode = 2 };
 
 template <int HD, bool CAP>
@@ -1066,9 +844,9 @@ cudaError_t launch_bf16(const Params& p, int BH, int BKV, int path,
     cudaError_t e = opt_in(flash_wgmma_kernel<HD, CAP>, L::SMEM, opted);
     if (e != cudaSuccess) return e;
     CUtensorMap tq, tk, tv;
-    if (!tensor_map<HD>(&tq, p.q, p.Sq, BH) ||
-        !tensor_map<HD>(&tk, p.k, p.Sk, BKV) ||
-        !tensor_map<HD>(&tv, p.v, p.Sk, BKV))
+    if (!tensor_map<HD, kWQ>(&tq, p.q, p.Sq, BH) ||
+        !tensor_map<HD, kWK>(&tk, p.k, p.Sk, BKV) ||
+        !tensor_map<HD, kWK>(&tv, p.v, p.Sk, BKV))
       return cudaErrorInvalidValue;
     const dim3 grid((p.Sq + kWQ - 1) / kWQ, BH);
     flash_wgmma_kernel<HD, CAP>
@@ -1105,11 +883,15 @@ cudaError_t launch(const Params& p, int BH, int BKV, int path,
 // C entry point (loaded with ctypes). q/k/v/o are device pointers of
 // contiguous, 16-byte aligned tensors, all fp32 for `path` 0 (fp32) and all
 // bf16 for paths 1 (wgmma) and 2 (decode, Sq * BH / BKV <= 16); hd must be
-// 32, 64 or 128; `stream` is a cudaStream_t. Returns cudaGetLastError()
-// after the launch (0 = launched), or cudaErrorInvalidValue for a shape or
-// path the kernels do not take.
+// 32, 64 or 128; `stream` is a cudaStream_t. `lse` (BH, Sq) fp32 may be
+// null; given on a bf16 path, the kernel also writes each row's logsumexp
+// there (natural log, of the scores as the softmax takes them; +inf for a
+// row with no allowed key), which the backward reads; the fp32 path takes
+// none. Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape or path the kernels do not take.
 extern "C" int flash_attention_forward(const void* q, const void* k,
-                                       const void* v, void* o, int BH,
+                                       const void* v, void* o, float* lse,
+                                       int BH,
                                        int BKV, int Sq, int Sk, int hd,
                                        int path, int causal, int window,
                                        float scale, float softcap,
@@ -1118,11 +900,11 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
   if (BH < 0 || BKV < 1 || BH % BKV != 0 || Sq < 0 || Sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = BH / BKV;
-  const bool ok = (path == kPathF32 && BH <= 65535) ||
+  const bool ok = (path == kPathF32 && BH <= 65535 && lse == nullptr) ||
                   (path == kPathWgmma && Sk > 0 && BH <= 65535) ||
                   (path == kPathDecode && Sq * G <= kDR && BKV <= 65535);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q, k, v, o, Sq, Sk, G, causal, window, scale, softcap,
+  const Params p{q, k, v, o, lse, Sq, Sk, G, causal, window, scale, softcap,
                  scale * kLog2e,
                  softcap > 0.f ? scale / softcap : 0.f, softcap * kLog2e};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

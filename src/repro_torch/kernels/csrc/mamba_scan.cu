@@ -52,6 +52,14 @@
 //   4 MB at falcon-mamba-7b's prefill (B = 8), against 268 MB of x, dt and
 //   y. Steps past S in the last chunk are zero-filled, so dt = 0 there and
 //   h passes them unchanged (exp(0) h + 0).
+// - For training, an optional `states` pointer (B, ceil(S / 16), di, N):
+//   each lane writes its P states of h before every kStateT = 16th step,
+//   the chunk boundaries from which the backward kernel
+//   (csrc/mamba_scan_bwd.cu) recomputes each chunk, so that it takes no
+//   forward walk of its own. They are the forward's own h, rounded as
+//   above, bit for bit. 33.5 MB at falcon-mamba-7b's train shape (B 2, S
+//   512), written 256 bytes a warp; the serving path passes null and
+//   writes nothing more.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,6 +71,8 @@ constexpr int kT = 32;                 // time steps per chunk
 constexpr int kStages = 4;             // chunk buffers: 2 ahead, 1 in the
                                        // scan, 1 in the write-back
 constexpr int kXld = kT + 4;           // row stride of a staged row of steps
+constexpr int kStateT = 16;            // steps between the states kept for
+                                       // the backward (its chunk, kT there)
 constexpr unsigned kFull = 0xffffffffu;
 
 // Lanes per channel for N states: N / kStatesPerLane within [4, 16].
@@ -119,14 +129,16 @@ mamba_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ A, const float* __restrict__ Bs,
                   const float* __restrict__ Cs, const float* __restrict__ D,
                   const float* __restrict__ h0, float* __restrict__ y,
-                  float* __restrict__ h_last, int S, int di) {
+                  float* __restrict__ h_last, float* __restrict__ states,
+                  int S, int di) {
   using Lay = Layout<L, P>;
   constexpr int N = Lay::N, T = Lay::kThreads;
   constexpr int kRows = T / kCh;                 // x rows a pass copies
   constexpr int kXPer = kT / kRows;              // x (and dt) copies a thread
   constexpr int kBRows = T / N;                  // B rows a pass copies
   static_assert(T % kCh == 0 && kT % kRows == 0 && T % N == 0 &&
-                    kT % kBRows == 0 && kT % L == 0 && L % 4 == 0,
+                    kT % kBRows == 0 && kT % L == 0 && L % 4 == 0 &&
+                    kT % kStateT == 0 && kStateT % L == 0,
                 "the copy and scan loops take whole passes");
   extern __shared__ float4 smem4[];
   float* const xs = reinterpret_cast<float*>(smem4);  // [stage][ch][t]
@@ -144,6 +156,12 @@ mamba_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const bool live = d0 + ch < di;
   const size_t hoff =
       (static_cast<size_t>(blockIdx.y) * di + d0 + ch) * N + lane * P;
+  // this lane's P states before step 0 of the states' chunk sc:
+  // states (B, ceil(S / kStateT), di, N)
+  const int schunks = (S + kStateT - 1) / kStateT;
+  float* const sp = states == nullptr ? nullptr
+                    : states + (static_cast<size_t>(blockIdx.y) * schunks *
+                                    di + d0 + ch) * N + lane * P;
   float a[P], h[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) {
@@ -224,6 +242,12 @@ mamba_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     float* yw = ys + (c & 1) * Lay::kYBuf + ch;
 #pragma unroll
     for (int g0 = 0; g0 < kT; g0 += L) {         // groups of L steps
+      if (g0 % kStateT == 0 && sp != nullptr && live &&
+          c * kT + g0 < S) {                     // h before this step
+        float* at = sp + static_cast<size_t>((c * kT + g0) / kStateT) * di * N;
+#pragma unroll
+        for (int j = 0; j < P; ++j) at[j] = h[j];
+      }
       float part[L];                             // this lane's partial y
 #pragma unroll
       for (int q = 0; q < L; q += 4) {
@@ -292,8 +316,8 @@ mamba_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 template <int L, int P>
 cudaError_t launch(const float* x, const float* dt, const float* A,
                    const float* Bs, const float* Cs, const float* D,
-                   const float* h0, float* y, float* h_last, int B, int S,
-                   int di, cudaStream_t stream) {
+                   const float* h0, float* y, float* h_last, float* states,
+                   int B, int S, int di, cudaStream_t stream) {
   using Lay = Layout<L, P>;
   constexpr size_t smem = sizeof(float) * Lay::kFloats;
   static bool opted_in = false;
@@ -306,18 +330,18 @@ cudaError_t launch(const float* x, const float* dt, const float* A,
   }
   const dim3 grid((di + kCh - 1) / kCh, B);
   mamba_scan_kernel<L, P><<<grid, Lay::kThreads, smem, stream>>>(
-      x, dt, A, Bs, Cs, D, h0, y, h_last, S, di);
+      x, dt, A, Bs, Cs, D, h0, y, h_last, states, S, di);
   return cudaGetLastError();
 }
 
 template <int N>
 cudaError_t launch_n(const float* x, const float* dt, const float* A,
                      const float* Bs, const float* Cs, const float* D,
-                     const float* h0, float* y, float* h_last, int B, int S,
-                     int di, cudaStream_t stream) {
+                     const float* h0, float* y, float* h_last, float* states,
+                     int B, int S, int di, cudaStream_t stream) {
   constexpr int L = lanes_for(N);
-  return launch<L, N / L>(x, dt, A, Bs, Cs, D, h0, y, h_last, B, S, di,
-                          stream);
+  return launch<L, N / L>(x, dt, A, Bs, Cs, D, h0, y, h_last, states, B, S,
+                          di, stream);
 }
 
 }  // namespace
@@ -325,13 +349,17 @@ cudaError_t launch_n(const float* x, const float* dt, const float* A,
 // C entry point (loaded with ctypes). All pointers are device pointers of
 // contiguous float32 tensors; D (di,) may be null (no skip term), h0
 // (B, di, N) may be null (start from zeros), h_last (B, di, N) may not;
-// `stream` is a cudaStream_t. N must be 4, 8, 16 or 32,
-// S at least 1. Returns cudaGetLastError() after the launch (0 = launched).
+// states (B, ceil(S / 16), di, N) may be null: given, the kernel also
+// writes the state before every 16th step there (the backward's chunk
+// boundaries; chunk 0's is h0 or zeros). `stream` is a cudaStream_t. N must
+// be 4, 8, 16 or 32, S at least 1. Returns cudaGetLastError() after the
+// launch (0 = launched).
 extern "C" int mamba_scan_forward(const float* x, const float* dt,
                                   const float* A, const float* Bs,
                                   const float* Cs, const float* D,
                                   const float* h0, float* y, float* h_last,
-                                  int B, int S, int di, int N, void* stream) {
+                                  float* states, int B, int S, int di, int N,
+                                  void* stream) {
   if (B < 0 || B > 65535 || S < 1 || di < 0 || h_last == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || di == 0) return 0;
@@ -340,7 +368,8 @@ extern "C" int mamba_scan_forward(const float* x, const float* dt,
   switch (N) {
 #define MAMBA_SCAN_CASE(n)                                                  \
   case n:                                                                   \
-    e = launch_n<n>(x, dt, A, Bs, Cs, D, h0, y, h_last, B, S, di, s);       \
+    e = launch_n<n>(x, dt, A, Bs, Cs, D, h0, y, h_last, states, B, S, di,  \
+                    s);                                                     \
     break;
     MAMBA_SCAN_CASE(4)
     MAMBA_SCAN_CASE(8)

@@ -35,17 +35,23 @@ or on `meta` is the card's.
 Gradients: the reference's Pallas kernel has no VJP (its LMs train
 through jnp autodiff of the plain oracle); here the backward is a kernel
 too. With gradients on, a call goes through `FlashAttention`, a
-`torch.autograd.Function` whose forward launches the forward kernel and
-keeps q, k, v and the output, and whose backward (`flash_attention_bwd`)
-launches the two kernels of csrc/flash_attention_bwd.cu: one a query
-tile (each row's logsumexp and D = rowsum(g * out), then dQ), then one a
-k/v tile (dK and dV, over the G query heads of its k/v head), no atomics,
-repeatable bit for bit; bf16 on the tensor cores (mma.sync, fp32
-accumulate, P and dS rounded to bf16 as operands), fp32 exactly on the
-FMA units. For CPU tensors it runs the plain backward
-`ref.flash_attention_bwd_ref`, for `meta` ones it returns the empty
-fakes; under an op counter it records `work.attention_bwd_work`.
-`bwd_launches` counts its launches, two a call.
+`torch.autograd.Function` whose forward launches the forward kernel with
+each row's logsumexp written too (bf16; `_forward(return_lse=True)`) and
+keeps q, k, v, the output and that logsumexp, and whose backward
+(`flash_attention_bwd`) launches the two kernels of
+csrc/flash_attention_bwd.cu: one a 128-row query tile (D =
+rowsum(g * out), then dQ), then one a 128-key tile (dK and dV, over the G
+query heads of its k/v head), no atomics, repeatable bit for bit. bf16
+runs on wgmma fed by TMA, as the forward's prefill kernel, each P from
+the saved logsumexp (P and dS rounded to bf16 as operands); fp32 runs
+exactly on the FMA units and makes its own logsumexp. Without gradients
+the forward writes no logsumexp. For CPU tensors the Function saves the
+plain logsumexp (`ref.flash_attention_ref(return_lse=True)`) and runs the
+plain backward `ref.flash_attention_bwd_ref` from it, for `meta` ones it
+returns the empty fakes (a (BH, Sq) logsumexp for bf16); under an op
+counter the forward records `work.attention_work` (with the logsumexp's
+bytes when written) and the backward `work.attention_bwd_work`.
+`bwd_launches` counts the backward's launches, two a call.
 """
 from __future__ import annotations
 
@@ -63,6 +69,7 @@ DECODE_TILE = 64              # keys per stage of the decode kernel
 DECODE_SPLITS = 8             # blocks of a cluster, each a share of the keys
 PATHS = {"fp32": 0, "wgmma": 1, "decode": 2}   # the C entry point's codes
 MAX_GRID_Y = 65535
+BWD_ROWS = 128                # a bf16 backward block's rows: the stats' padding
 
 launches = 0                  # kernel launches (not plain-version calls)
 bwd_launches = 0              # backward kernel launches, two a call
@@ -115,15 +122,17 @@ def _library():
     from repro_torch.kernels import build
     fn = build.load("flash_attention").flash_attention_forward
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, out, *, causal, window, softcap, scale) -> int:
-    """Launch the kernel `kernel_path` picks on checked CUDA tensors;
-    returns the CUDA error code (0 = launched)."""
+def _launch(q, k, v, out, lse=None, *, causal, window, softcap,
+            scale) -> int:
+    """Launch the kernel `kernel_path` picks on checked CUDA tensors,
+    with each row's logsumexp into `lse` (BH, Sq) fp32 if given (bf16
+    paths only); returns the CUDA error code (0 = launched)."""
     BH, Sq, hd = q.shape
     BKV, Sk, _ = k.shape
     path = kernel_path(BH, BKV, Sq, Sk, hd, q.dtype)
@@ -131,34 +140,41 @@ def _launch(q, k, v, out, *, causal, window, softcap, scale) -> int:
     with torch.cuda.device(q.device):
         return _library()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             BH, BKV, Sq, Sk, hd, PATHS[path], int(causal),
             int(window or 0), float(scale), float(softcap or 0.0),
             torch.cuda.current_stream().cuda_stream)
 
 
-def _forward(q, k, v, *, causal, window, softcap, scale):
+def _forward(q, k, v, *, causal, window, softcap, scale, return_lse=False):
     """The kernel's function on checked tensors: one counted launch on
     CUDA, the plain version on the CPU, the kernel's fake on `meta`;
-    recorded for an active op counter."""
+    recorded for an active op counter. With `return_lse`, (out, lse):
+    each row's logsumexp (BH, Sq) fp32 as the backward reads it (the
+    plain version's on the CPU; the kernel's on a bf16 path; None on the
+    fp32 path, whose backward makes its own)."""
     global launches
     BH, Sq, hd = q.shape
+    lse_out = return_lse and q.dtype == torch.bfloat16
     cost = work.attention_work(BH, k.shape[0], Sq, k.shape[1], hd,
                                causal=causal, window=window,
-                               itemsize=q.element_size())
+                               itemsize=q.element_size(), lse=lse_out)
     with opanalysis.kernel("flash_attention", cost[1], cost[0]):
         if q.device.type == "cpu":
             return ref.flash_attention_ref(q, k, v, causal=causal,
                                            window=window, softcap=softcap,
-                                           scale=scale)
+                                           scale=scale, return_lse=return_lse)
         out = torch.empty_like(q)
+        lse = (torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+               if lse_out else None)
         if q.device.type == "meta":
-            return out
-        err = _launch(q, k, v, out, causal=causal, window=window,
+            return (out, lse) if return_lse else out
+        err = _launch(q, k, v, out, lse, causal=causal, window=window,
                       softcap=softcap, scale=scale)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def _bwd_library():
@@ -171,35 +187,50 @@ def _bwd_library():
     return fn
 
 
-def flash_attention_bwd(q, k, v, out, g, *, causal=True, window=0,
-                        softcap=0.0, scale=None):
+def flash_attention_bwd(q, k, v, out, g, lse=None, *, causal=True,
+                        window=0, softcap=0.0, scale=None):
     """The backward kernel's function on checked tensors (q, k, v as
     `flash_attention` takes them, `out` its output and `g` that output's
-    cotangent, both (BH, Sq, hd) in q's dtype): (dq, dk, dv) in their
-    inputs' dtypes. Two counted launches on CUDA, the plain backward on
-    the CPU, empty fakes on `meta`; recorded for an active op counter."""
+    cotangent, both (BH, Sq, hd) in q's dtype; `lse` (BH, Sq) fp32 each
+    row's logsumexp as the forward returns it): (dq, dk, dv) in their
+    inputs' dtypes. Two counted launches on CUDA, where bf16 needs the
+    forward kernel's `lse` (the fp32 kernels make their own); the plain
+    backward on the CPU (from `lse` if given); empty fakes on `meta`;
+    recorded for an active op counter."""
     global bwd_launches
     BH, Sq, hd = q.shape
+    bf16 = q.dtype == torch.bfloat16
     cost = work.attention_bwd_work(BH, k.shape[0], Sq, k.shape[1], hd,
                                    causal=causal, window=window,
-                                   itemsize=q.element_size())
+                                   itemsize=q.element_size(), lse=bf16)
     with opanalysis.kernel("flash_attention_bwd", cost[1], cost[0]):
         if q.device.type == "cpu":
             return ref.flash_attention_bwd_ref(
                 q, k, v, out, g, causal=causal, window=window,
-                softcap=softcap, scale=scale)
+                softcap=softcap, scale=scale, lse=lse)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         if q.device.type == "meta":
             return dq, dk, dv
-        # each row's logsumexp and D, from the first launch to the second
-        stats = torch.empty((2, BH, Sq), dtype=torch.float32,
+        if bf16 and Sq > 0 and (lse is None or lse.shape != (BH, Sq)
+                                or lse.dtype != torch.float32
+                                or lse.device != q.device
+                                or not lse.is_contiguous()):
+            raise ValueError("the bf16 backward kernels read the forward "
+                             "kernel's logsumexp: lse must be (BH, Sq) fp32, "
+                             "contiguous, on q's device")
+        # bf16: each row's logsumexp (log2 units) and D from the first
+        # launch to the second, rows padded to BWD_ROWS; fp32: the first
+        # launch's logsumexp and D
+        rows = -(-Sq // BWD_ROWS) * BWD_ROWS if bf16 else Sq
+        stats = torch.empty((2, BH, rows), dtype=torch.float32,
                             device=q.device)
         scale = hd ** -0.5 if scale is None else scale
         with torch.cuda.device(q.device):
             err = _bwd_library()(
                 *(t.data_ptr() for t in (q, k, v, out, g, dq, dk, dv)),
-                stats[0].data_ptr(), stats[1].data_ptr(), BH, k.shape[0], Sq,
-                k.shape[1], hd, int(q.dtype == torch.bfloat16), int(causal),
+                lse.data_ptr() if bf16 and Sq > 0 else None,
+                stats.data_ptr(), BH, k.shape[0], Sq,
+                k.shape[1], hd, int(bf16), int(causal),
                 int(window or 0), float(scale), float(softcap or 0.0),
                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -216,18 +247,18 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
         kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-        out = _forward(q, k, v, **kw)
+        out, lse = _forward(q, k, v, **kw, return_lse=True)
         ctx.kw = kw
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out = ctx.saved_tensors   # once: remat unpacks once
+        q, k, v, out, lse = ctx.saved_tensors   # once: remat unpacks once
         g = g.contiguous()
         if g.data_ptr() % 16:              # the kernels read 16-byte rows
             g = g.clone()
-        grads = flash_attention_bwd(q, k, v, out, g, **ctx.kw)
+        grads = flash_attention_bwd(q, k, v, out, g, lse, **ctx.kw)
         return (*(d if w else None
                   for d, w in zip(grads, ctx.needs_input_grad[:3])),
                 None, None, None, None)

@@ -34,17 +34,24 @@ Gradients: the reference's Pallas kernel has no VJP (its LMs train
 through jnp autodiff of the plain oracle's `lax.scan`); here the backward
 is a kernel too. With gradients on, a call goes through `MambaScan`, a
 `torch.autograd.Function` whose forward launches the kernel (with D and
-h0) and keeps its inputs, and whose backward (`mamba_scan_bwd`) launches
-the two kernels of csrc/mamba_scan_bwd.cu: a reverse scan in the forward
-kernel's layout (a forward pass keeps h at chunk boundaries in a scratch
-tensor, then each chunk, last first, recomputes its states from its
-boundary, rounded as the forward rounds them, and carries dh back),
-whose blocks write partial sums of dB, dC, dA and dD, and a second launch
-that adds the partials in a fixed order: no atomics, repeatable bit for
-bit. It returns the gradients of x, dt, A, Bs, Cs, D and h0. For CPU
-tensors it runs the plain backward `ref.mamba_scan_bwd_ref`, for `meta`
-ones it returns the empty fakes; under an op counter it records
-`work.scan_bwd_work`. `bwd_launches` counts its launches, two a call.
+h0) with the state before every CHUNK-th step written too
+(`_forward(with_states=True)`; under remat the re-forward writes them
+again) and keeps its inputs and those states, and whose backward
+(`mamba_scan_bwd`) launches the two kernels of csrc/mamba_scan_bwd.cu: a
+reverse scan in the forward kernel's layout (each chunk, last first,
+recomputed from its kept state, rounded as the forward rounds it; x, dt,
+the cotangent, B and C staged by asynchronous copies two chunks ahead;
+dh carried back), whose blocks add their dB/dC terms over a cluster of up
+to 8 blocks through distributed shared memory and write their dA/dD
+partials, and a second launch that adds the partials in a fixed order: no
+atomics, repeatable bit for bit. It returns the gradients of x, dt, A,
+Bs, Cs, D and h0. Without gradients the forward writes no states. For CPU
+tensors the Function saves the plain states (`ref.mamba_scan_ref(chunk=
+CHUNK)`) and runs the plain backward `ref.mamba_scan_bwd_ref` from them,
+for `meta` ones it returns the empty fakes; under an op counter the
+forward records `work.scan_work` (with the states' bytes when written)
+and the backward `work.scan_bwd_work`. `bwd_launches` counts the
+backward's launches, two a call.
 """
 from __future__ import annotations
 
@@ -59,9 +66,10 @@ STATES = (4, 8, 16, 32)   # the kernel's state sizes N
 
 launches = 0              # kernel launches (not plain-version calls)
 bwd_launches = 0          # backward kernel launches, two a call
-# the backward kernel's kT and kCh (csrc/mamba_scan_bwd.cu), which size
-# its scratch: steps between the states it keeps, channels a block
-CHUNK, CHANNELS = 16, 32
+# the forward kernel's kStateT and the backward's kT (csrc/mamba_scan.cu,
+# csrc/mamba_scan_bwd.cu): steps between the states the forward keeps for
+# the backward, which sizes the states tensor
+CHUNK = 16
 
 
 def _check(x, dt, A, Bs, Cs, D=None, h0=None):
@@ -92,15 +100,16 @@ def _library():
     from repro_torch.kernels import build
     fn = build.load("mamba_scan").mamba_scan_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x, dt, A, Bs, Cs, y, h_last, D=None, h0=None) -> int:
-    """Launch the kernel on checked CUDA tensors (D and h0 may be None);
-    returns the CUDA error code (0 = launched)."""
+def _launch(x, dt, A, Bs, Cs, y, h_last, D=None, h0=None,
+            states=None) -> int:
+    """Launch the kernel on checked CUDA tensors (D, h0 and states may
+    be None); returns the CUDA error code (0 = launched)."""
     B, S, di = x.shape
 
     def ptr(t):
@@ -108,37 +117,46 @@ def _launch(x, dt, A, Bs, Cs, y, h_last, D=None, h0=None) -> int:
     with torch.cuda.device(x.device):
         return _library()(*(t.data_ptr() for t in (x, dt, A, Bs, Cs)),
                           ptr(D), ptr(h0), y.data_ptr(), h_last.data_ptr(),
-                          B, S, di, A.shape[1],
+                          ptr(states), B, S, di, A.shape[1],
                           torch.cuda.current_stream().cuda_stream)
 
 
-def _forward(x, dt, A, Bs, Cs, D, h0):
+def _forward(x, dt, A, Bs, Cs, D, h0, with_states=False):
     """The kernel's function on checked tensors: one counted launch on
     CUDA, the plain version on the CPU, the kernel's fake on `meta`;
-    recorded for an active op counter."""
+    recorded for an active op counter. With `with_states`, (y, h_last,
+    states): also the states before every CHUNK-th step (B, ceil(S /
+    CHUNK), di, N), which the backward starts its chunks from."""
     global launches
     B, S, di = x.shape
-    cost = work.scan_work(B, S, di, A.shape[1], skip=D is not None,
-                          h0=h0 is not None)
+    N = A.shape[1]
+    cost = work.scan_work(B, S, di, N, skip=D is not None,
+                          h0=h0 is not None,
+                          states=CHUNK if with_states else 0)
     with opanalysis.kernel("mamba_scan", cost[1], cost[0]):
         if x.device.type == "cpu":
-            return _plain(x, dt, A, Bs, Cs, D, h0)
+            return _plain(x, dt, A, Bs, Cs, D, h0, with_states)
         y = torch.empty_like(x)
-        h_last = torch.empty((B, di, A.shape[1]), dtype=torch.float32,
-                             device=x.device)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        h_last = torch.empty((B, di, N), **f32)
+        states = (torch.empty((B, -(-S // CHUNK), di, N), **f32)
+                  if with_states else None)
+        outs = (y, h_last, states) if with_states else (y, h_last)
         if x.device.type == "meta":
-            return y, h_last
-        err = _launch(x, dt, A, Bs, Cs, y, h_last, D, h0)
+            return outs
+        err = _launch(x, dt, A, Bs, Cs, y, h_last, D, h0, states)
     if err != 0:
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
     launches += 1
-    return y, h_last
+    return outs
 
 
-def _plain(x, dt, A, Bs, Cs, D, h0):
-    """The kernel's function by its plain version: (y (+ x·D), h_last)."""
-    y, h = ref.mamba_scan_ref(x, dt, A, Bs, Cs, h0)
-    return (y if D is None else y + x * D), h
+def _plain(x, dt, A, Bs, Cs, D, h0, with_states=False):
+    """The kernel's function by its plain version: (y (+ x·D), h_last),
+    and with `with_states` the states the kernel keeps."""
+    y, h, *states = ref.mamba_scan_ref(x, dt, A, Bs, Cs, h0,
+                                       CHUNK if with_states else None)
+    return ((y if D is None else y + x * D), h, *states)
 
 
 def _bwd_library():
@@ -151,40 +169,57 @@ def _bwd_library():
     return fn
 
 
-def mamba_scan_bwd(x, dt, A, Bs, Cs, D, h0, gy, gh):
+def bwd_parts(di) -> int:
+    """The backward kernel's dB/dC partials at this d_inner: one a
+    thread-block cluster of up to 8 blocks of 16 channels."""
+    from repro_torch.kernels import build
+    fn = build.load("mamba_scan_bwd").mamba_scan_bwd_parts
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(int(di))
+
+
+def mamba_scan_bwd(x, dt, A, Bs, Cs, D, h0, gy, gh, states=None):
     """The backward kernel's function on checked tensors (`mamba_scan`'s
     inputs; gy (B, S, di) and gh (B, di, N), the cotangents of y and
-    h_last, each fp32 and contiguous or None): (dx, ddt, dA, dB, dC, dD,
-    dh0), fp32, dD None without D and dh0 None without h0. Two counted
-    launches on CUDA, the plain backward on the CPU, empty fakes on
-    `meta`; recorded for an active op counter."""
+    h_last, each fp32 and contiguous or None; `states`, the forward's
+    chunk states as `_forward(with_states=True)` returns them): (dx, ddt,
+    dA, dB, dC, dD, dh0), fp32, dD None without D and dh0 None without
+    h0. Two counted launches on CUDA, which need the forward kernel's
+    `states`; the plain backward on the CPU (from `states` if given);
+    empty fakes on `meta`; recorded for an active op counter."""
     global bwd_launches
     B, S, di = x.shape
     N = A.shape[1]
     cost = work.scan_bwd_work(B, S, di, N, skip=D is not None,
                               h0=h0 is not None, gy=gy is not None,
-                              gh=gh is not None)
+                              gh=gh is not None, states=CHUNK)
     with opanalysis.kernel("mamba_scan_bwd", cost[1], cost[0]):
         if x.device.type == "cpu":
-            return ref.mamba_scan_bwd_ref(x, dt, A, Bs, Cs, D, h0, gy, gh)
+            return ref.mamba_scan_bwd_ref(x, dt, A, Bs, Cs, D, h0, gy, gh,
+                                          states, CHUNK)
         grads = [torch.empty_like(t) for t in (x, dt, A, Bs, Cs)]
         grads += [None if t is None else torch.empty_like(t)
                   for t in (D, h0)]
         if x.device.type == "meta":
             return tuple(grads)
-        chunks = -(-S // CHUNK)
-        blocks = -(-di // CHANNELS)
+        want = (B, -(-S // CHUNK), di, N)
+        if (states is None or tuple(states.shape) != want
+                or states.dtype != torch.float32
+                or states.device != x.device or not states.is_contiguous()):
+            raise ValueError(f"the scan backward kernel starts from the "
+                             f"forward kernel's chunk states: states must be "
+                             f"{want} fp32, contiguous, on x's device")
         f32 = dict(dtype=torch.float32, device=x.device)
-        states = torch.empty((B, chunks, di, N), **f32)
-        part_bc = torch.empty((blocks, 2, B, S, N), **f32)
+        part_bc = torch.empty((bwd_parts(di), 2, B, S, N), **f32)
         part_ad = torch.empty((B, di * (N + 1)), **f32)
 
         def ptr(t):
             return None if t is None else t.data_ptr()
         with torch.cuda.device(x.device):
             err = _bwd_library()(
-                *(ptr(t) for t in (x, dt, A, Bs, Cs, D, h0, gy, gh,
-                                   *grads, states, part_bc, part_ad)),
+                *(ptr(t) for t in (x, dt, A, Bs, Cs, D, h0, gy, gh, states,
+                                   *grads, part_bc, part_ad)),
                 B, S, di, N, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"mamba_scan backward launch failed: CUDA error "
@@ -200,16 +235,19 @@ class MambaScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bs, Cs, D, h0):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, dt, A, Bs, Cs, D, h0)
-        return _forward(x, dt, A, Bs, Cs, D, h0)
+        y, h_last, states = _forward(x, dt, A, Bs, Cs, D, h0,
+                                     with_states=True)
+        ctx.save_for_backward(x, dt, A, Bs, Cs, D, h0, states)
+        return y, h_last
 
     @staticmethod
     def backward(ctx, gy, gh):
         saved = ctx.saved_tensors       # once: a remat checkpoint unpacks once
-        grads = mamba_scan_bwd(*saved, *(None if g is None else g.contiguous()
-                                         for g in (gy, gh)))
+        ins, states = saved[:7], saved[7]
+        grads = mamba_scan_bwd(*ins, *(None if g is None else g.contiguous()
+                                       for g in (gy, gh)), states)
         return tuple(d if w and t is not None else None
-                     for d, t, w in zip(grads, saved, ctx.needs_input_grad))
+                     for d, t, w in zip(grads, ins, ctx.needs_input_grad))
 
 
 def mamba_scan(x, dt, A, Bs, Cs, D=None, h0=None):

@@ -44,11 +44,14 @@ def _mask(Sq, Sk, causal, window, device):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        scale=None):
+                        scale=None, return_lse=False):
     """q: (BH, Sq, hd), k/v: (BKV, Sk, hd) with BH % BKV == 0; query row b
     reads k/v row b // (BH / BKV). fp32 softmax, full scores. Queries are
     right-aligned: qpos = i + Sk - Sq. Fully-masked rows -> 0. Returns
-    (BH, Sq, hd) in q's dtype."""
+    (BH, Sq, hd) in q's dtype; with `return_lse`, also each row's
+    logsumexp of its masked scores (BH, Sq) fp32, +inf on a row with no
+    allowed key (what the forward kernels save for the backward: exp(s -
+    lse) is then 0 on every key)."""
     G = q.shape[0] // k.shape[0]
     if G > 1:
         k, v = k.repeat_interleave(G, dim=0), v.repeat_interleave(G, dim=0)
@@ -60,7 +63,11 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
     s = s.masked_fill(~mask, -torch.inf)
     p = torch.softmax(s, dim=-1).nan_to_num(nan=0.0)   # fully-masked -> 0
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1)
+    return out, torch.where(torch.isinf(lse), torch.inf, lse)
 
 
 def _scores(q, k, *, causal, window, softcap, scale):
@@ -128,11 +135,12 @@ def flash_attention_split_ref(q, k, v, *, causal=True, window=0,
 
 
 def flash_attention_bwd_ref(q, k, v, out, g, *, causal=True, window=0,
-                            softcap=0.0, scale=None):
+                            softcap=0.0, scale=None, lse=None):
     """Plain version of the attention backward kernel: the cotangents
     (dq, dk, dv) of `flash_attention_ref`'s inputs for the cotangent g of
     its output `out`, by the flash algorithm in fp32: each row's
-    logsumexp, D = rowsum(g * out), P recomputed, dV = P^T g, dP = g V^T,
+    logsumexp (`lse` (BH, Sq) as the forward saved it, if given),
+    D = rowsum(g * out), P recomputed, dV = P^T g, dP = g V^T,
     dS = P (dP - D) times the softcap's 1 - tanh^2, dQ = scale dS K,
     dK = scale dS^T Q; dK and dV summed over each GQA group of query
     heads. A row with no allowed key passes nothing back. Each gradient
@@ -151,8 +159,11 @@ def flash_attention_bwd_ref(q, k, v, out, g, *, causal=True, window=0,
         s, fac = softcap * t, 1.0 - t * t
     mask = _mask(Sq, Sk, causal, window, q.device)
     s = s.masked_fill(~mask, -torch.inf)
-    lse = torch.logsumexp(s, dim=-1, keepdim=True)
-    lse = torch.where(torch.isinf(lse), 0.0, lse)
+    if lse is None:
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        lse = torch.where(torch.isinf(lse), 0.0, lse)
+    else:
+        lse = lse.float()[..., None]
     p = torch.where(mask, torch.exp(s - lse), 0.0)
     delta = (gf * out.float()).sum(-1, keepdim=True)
     dv = torch.einsum("bqk,bqd->bkd", p, gf)
@@ -166,10 +177,12 @@ def flash_attention_bwd_ref(q, k, v, out, g, *, causal=True, window=0,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def mamba_scan_ref(x, dt, A, Bs, Cs, h0=None):
+def mamba_scan_ref(x, dt, A, Bs, Cs, h0=None, chunk=None):
     """Sequential selective-scan oracle.
     x/dt: (B, S, di); Bs/Cs: (B, S, N); A: (di, N); h0: (B, di, N).
-    Returns (y (B, S, di), h_last (B, di, N)), fp32."""
+    Returns (y (B, S, di), h_last (B, di, N)), fp32; given `chunk`, also
+    the states before steps 0, chunk, 2 chunk, ... (B, ceil(S / chunk),
+    di, N): what the scan kernel keeps for its backward."""
     B, S, di = x.shape
     A = A.float()
     # the steps' slices as views from one unbind each: under autograd
@@ -178,22 +191,29 @@ def mamba_scan_ref(x, dt, A, Bs, Cs, h0=None):
     xs, dts, Bs_, Cs_ = (t.float().unbind(1) for t in (x, dt, Bs, Cs))
     h = (torch.zeros((B, di, A.shape[1]), dtype=torch.float32,
                      device=x.device) if h0 is None else h0.float())
-    ys = []
+    ys, kept = [], []
     for t in range(S):
+        if chunk is not None and t % chunk == 0:
+            kept.append(h)
         a = torch.exp(dts[t][..., None] * A)                  # (B, di, N)
         b = (dts[t] * xs[t])[..., None] * Bs_[t][:, None, :]
         h = a * h + b
         ys.append(torch.einsum("bdn,bn->bd", h, Cs_[t]))
-    return torch.stack(ys, dim=1), h
+    if chunk is None:
+        return torch.stack(ys, dim=1), h
+    return torch.stack(ys, dim=1), h, torch.stack(kept, dim=1)
 
 
-def mamba_scan_bwd_ref(x, dt, A, Bs, Cs, D, h0, gy, gh):
+def mamba_scan_bwd_ref(x, dt, A, Bs, Cs, D, h0, gy, gh, states=None,
+                       chunk=16):
     """Plain version of the scan backward kernel: the cotangents of
     `mamba_scan_ref`'s inputs, plus the skip term's (y + x·D with D
     given), for the cotangents gy (B, S, di) of y and gh (B, di, N) of
-    h_last, either of which may be None (no cotangent). A forward keeps
-    every state, then a reverse loop in time carries dh back:
-    dh += gy_t C_t, dC_t = Σ_d gy_t h_t, dB_t = Σ_d dh (dt_t x_t),
+    h_last, either of which may be None (no cotangent). The states are
+    recomputed from h0 or, given `states` (B, ceil(S / chunk), di, N) as
+    `mamba_scan_ref(chunk=chunk)` keeps them (16: the scan kernels'
+    chunk), each chunk from its own state, as the kernel does; then a reverse loop in time carries dh
+    back: dh += gy_t C_t, dC_t = Σ_d gy_t h_t, dB_t = Σ_d dh (dt_t x_t),
     d(dt·A) = dh h_{t-1} a_t, dh *= a_t. Returns (dx, ddt, dA, dB, dC, dD,
     dh0), fp32; dD None without D, dh0 None without h0."""
     B, S, di = x.shape
@@ -204,6 +224,9 @@ def mamba_scan_bwd_ref(x, dt, A, Bs, Cs, D, h0, gy, gh):
                      device=x.device) if h0 is None else h0.float())
     hs, decays = [h], []
     for t in range(S):
+        if states is not None and t % chunk == 0:
+            h = states[:, t // chunk].float()
+            hs[-1] = h
         a = torch.exp(dts[t][..., None] * A)
         h = a * h + (dts[t] * xs[t])[..., None] * Bs_[t][:, None, :]
         hs.append(h)

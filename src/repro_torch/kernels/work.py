@@ -51,53 +51,72 @@ def needed_keys(Sq, Sk, causal, window) -> int:
     return max(0, hi - lo + 1)
 
 
-def attention_work(BH, BKV, Sq, Sk, hd, *, causal, window, itemsize
-                   ) -> Tuple[int, int]:
+def attention_work(BH, BKV, Sq, Sk, hd, *, causal, window, itemsize,
+                   lse=False) -> Tuple[int, int]:
     """flash_attention on q (BH, Sq, hd), k/v (BKV, Sk, hd): bytes (q
-    read, the output written, the needed keys of k and v read) and
-    FLOPs (4·hd an allowed pair and head: QK^T and PV)."""
+    read, the output written, the needed keys of k and v read; with
+    `lse`, each row's logsumexp written for the backward, fp32) and
+    FLOPs (4·hd an allowed pair and head: QK^T and PV). Without `lse`
+    it is the function's own work, the kernels' bound."""
     pairs = allowed_pairs(Sq, Sk, causal, window)
     keys = needed_keys(Sq, Sk, causal, window)
-    n_bytes = (2 * BH * Sq * hd + 2 * BKV * keys * hd) * itemsize
+    n_bytes = ((2 * BH * Sq * hd + 2 * BKV * keys * hd) * itemsize
+               + (4 * BH * Sq if lse else 0))
     return n_bytes, 4 * pairs * hd * BH
 
 
-def attention_bwd_work(BH, BKV, Sq, Sk, hd, *, causal, window, itemsize
-                       ) -> Tuple[int, int]:
+def attention_bwd_work(BH, BKV, Sq, Sk, hd, *, causal, window, itemsize,
+                       lse=False) -> Tuple[int, int]:
     """flash_attention's backward: bytes (q, the output and its cotangent
     read, dq written; the needed keys of k and v read; dk and dv written
-    whole) and FLOPs (5 products of 2·hd an allowed pair and head: QK^T
-    and dO V^T recomputed, P^T dO, dS K and dS^T Q)."""
+    whole; with `lse`, the forward's logsumexp read, fp32) and FLOPs (5
+    products of 2·hd an allowed pair and head: QK^T and dO V^T
+    recomputed, P^T dO, dS K and dS^T Q). Without `lse` it is the
+    function's own work, the kernels' bound."""
     pairs = allowed_pairs(Sq, Sk, causal, window)
     keys = needed_keys(Sq, Sk, causal, window)
-    n_bytes = (4 * BH * Sq * hd + 2 * BKV * keys * hd
-               + 2 * BKV * Sk * hd) * itemsize
+    n_bytes = ((4 * BH * Sq * hd + 2 * BKV * keys * hd
+                + 2 * BKV * Sk * hd) * itemsize
+               + (4 * BH * Sq if lse else 0))
     return n_bytes, 10 * pairs * hd * BH
 
 
-def scan_work(B, S, di, N, *, skip=True, h0=False) -> Tuple[int, int]:
+def scan_states(B, S, di, N, chunk) -> int:
+    """Elements of the states the scan forward keeps for its backward,
+    one before every `chunk`-th step (0: none kept)."""
+    return B * -(-S // chunk) * di * N if chunk else 0
+
+
+def scan_work(B, S, di, N, *, skip=True, h0=False, states=0
+              ) -> Tuple[int, int]:
     """mamba_scan on x/dt (B, S, di), A (di, N), Bs/Cs (B, S, N): bytes
-    (x, dt, y, A, Bs, Cs, D, h0 and h_last, fp32) and FLOPs: per (b, t,
-    d, n) dt*A, exp, a*h + b (2), dx*B, y += C*h (2); per (b, t, d) dt*x
-    and the skip term's FMA (2)."""
+    (x, dt, y, A, Bs, Cs, D, h0 and h_last, fp32; with `states` a chunk,
+    the states kept for the backward every `states` steps written) and
+    FLOPs: per (b, t, d, n) dt*A, exp, a*h + b (2), dx*B, y += C*h (2);
+    per (b, t, d) dt*x and the skip term's FMA (2). Without `states` it
+    is the function's own work, the kernel's bound."""
     n_bytes = 4 * (3 * B * S * di + di * N + 2 * B * S * N
-                   + (di if skip else 0) + (2 if h0 else 1) * B * di * N)
+                   + (di if skip else 0) + (2 if h0 else 1) * B * di * N
+                   + scan_states(B, S, di, N, states))
     return n_bytes, 7 * B * S * di * N + 3 * B * S * di
 
 
-def scan_bwd_work(B, S, di, N, *, skip=True, h0=False, gy=True, gh=False
-                  ) -> Tuple[int, int]:
+def scan_bwd_work(B, S, di, N, *, skip=True, h0=False, gy=True, gh=False,
+                  states=0) -> Tuple[int, int]:
     """mamba_scan's backward: bytes (x, dt, A, Bs, Cs, D and h0 read with
     the cotangents gy and gh; dx, ddt, dA, dB, dC, dD and dh0 written,
-    fp32) and FLOPs: per (b, t, d, n) the recomputed step (dt*A, exp,
-    a*h + b, dx*B: 5), dh += gy*C, dC += gy*h, dB += dh*dx, u += dh*B,
-    w += g*A, dA += g*dt (2 each), g = dh*h*a (2), dh *= a: 20; per
-    (b, t, d) dt*x, dx = u*dt, ddt = u*x + w, the skip term's dx += gy*D
-    and dD += gy*x: 9."""
+    fp32; with `states` a chunk, the forward's states every `states`
+    steps read) and FLOPs: per (b, t, d, n) the recomputed step (dt*A,
+    exp, a*h + b, dx*B: 5), dh += gy*C, dC += gy*h, dB += dh*dx,
+    u += dh*B, w += g*A, dA += g*dt (2 each), g = dh*h*a (2), dh *= a:
+    20; per (b, t, d) dt*x, dx = u*dt, ddt = u*x + w, the skip term's
+    dx += gy*D and dD += gy*x: 9. Without `states` it is the function's
+    own work, the kernels' bound."""
     big = B * S * di
     n_bytes = 4 * ((4 + (1 if gy else 0)) * big + 2 * di * N
                    + 4 * B * S * N + (2 * di if skip else 0)
-                   + ((2 if h0 else 0) + (1 if gh else 0)) * B * di * N)
+                   + ((2 if h0 else 0) + (1 if gh else 0)) * B * di * N
+                   + scan_states(B, S, di, N, states))
     return n_bytes, 20 * big * N + 9 * big
 
 

@@ -164,7 +164,9 @@ def test_kernel_wrappers_on_meta():
 def test_backward_kernels_on_meta():
     """The two LM backward kernels on `meta` through their Functions:
     empty gradients of their inputs' shapes and dtypes, one record each
-    (its `kernels.work` formula), no launch and no op counted beside."""
+    (its `kernels.work` formula, with the reads of what the forward
+    kernel saved: bf16 attention's logsumexp, the scan's chunk states),
+    no launch and no op counted beside."""
     def t(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device="meta",
                            requires_grad=True)
@@ -186,9 +188,10 @@ def test_backward_kernels_on_meta():
                                            "flash_attention_bwd"]
     by = {k["name"]: (k["bytes"], k["flops"]) for k in c.kernels}
     assert by["flash_attention_bwd"] == work.attention_bwd_work(
-        8, 2, 16, 24, 64, causal=True, window=4, itemsize=2)
+        8, 2, 16, 24, 64, causal=True, window=4, itemsize=2, lse=True)
     assert by["mamba_scan_bwd"] == work.scan_bwd_work(
-        2, 8, 32, 16, skip=True, h0=False, gy=True, gh=False)
+        2, 8, 32, 16, skip=True, h0=False, gy=True, gh=False,
+        states=mamba_scan.CHUNK)
     assert (gq.shape, gk.shape, gv.dtype) == ((8, 16, 64), (2, 24, 64),
                                               torch.bfloat16)
     assert [g.shape for g in gs] == [x.shape, dt.shape, A.shape, Bs.shape,

@@ -761,22 +761,31 @@ def test_flash_attention_function_gradients(cuda, B, S, H, K, hd, window,
     (4, 2, 12, 200, 64, True, 0, 0.0, torch.bfloat16),   # Sq < Sk
     (6, 3, 70, 90, 32, False, 0, 0.0, torch.float32),    # bidirectional
     (8, 8, 130, 130, 128, False, 33, 20.0, torch.bfloat16),
+    # the wgmma kernels' tile edges: 128 own rows, 64-row streamed tiles
+    (4, 4, 200, 200, 32, True, 0, 0.0, torch.bfloat16),  # hd 32, G 1
+    (8, 2, 190, 250, 64, True, 0, 0.0, torch.bfloat16),  # hd 64, G 4
+    (16, 2, 129, 129, 128, True, 0, 0.0, torch.bfloat16),  # G 8, 128 + 1
+    (8, 2, 300, 300, 128, True, 70, 30.0, torch.bfloat16),  # window, cap
+    (4, 1, 260, 100, 64, True, 0, 0.0, torch.bfloat16),  # Sq > Sk, G 4
+    (8, 1, 65, 1000, 128, True, 0, 50.0, torch.bfloat16),  # Sq < Sk, cap
+    (4, 2, 63, 63, 32, False, 0, 0.0, torch.bfloat16),   # one ragged tile
 ])
 def test_flash_attention_backward_kernel_edges(cuda, BH, BKV, Sq, Sk, hd,
                                                causal, window, cap, dtype):
     """`flash_attention_bwd` on the card at right-aligned Sq != Sk (rows
     with no allowed key give exact zeros), bidirectional and window
-    masks, ragged tiles: within the limits of the plain backward, and a
-    repeat bit-equal."""
+    masks, ragged tiles, from the forward kernel's logsumexp (bf16):
+    within the limits of the plain backward, and a repeat bit-equal."""
     gen = torch.Generator(cuda).manual_seed(BH + Sq)
     q, out, g = (torch.randn((BH, Sq, hd), device=cuda, generator=gen)
                  .to(dtype) for _ in range(3))
     k, v = (torch.randn((BKV, Sk, hd), device=cuda, generator=gen).to(dtype)
             for _ in range(2))
     kw = dict(causal=causal, window=window, softcap=cap)
-    out = fa.flash_attention(q, k, v, **kw)
-    got = fa.flash_attention_bwd(q, k, v, out, g, **kw)
-    again = fa.flash_attention_bwd(q, k, v, out, g, **kw)
+    out, lse = fa._forward(q, k, v, **kw, scale=None, return_lse=True)
+    assert (lse is None) == (dtype == torch.float32)
+    got = fa.flash_attention_bwd(q, k, v, out, g, lse, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, g, lse, **kw)
     want = ref.flash_attention_bwd_ref(q, k, v, out, g, **kw)
     torch.cuda.synchronize()
     _grads_close(got, want)
@@ -787,7 +796,11 @@ def test_flash_attention_backward_kernel_edges(cuda, BH, BKV, Sq, Sk, hd,
 
 @pytest.mark.parametrize("with_h0", [False, True])
 @pytest.mark.parametrize("B,S,di,N", [(2, 256, 512, 16), (1, 33, 130, 4),
-                                      (2, 70, 64, 8), (1, 47, 96, 32)])
+                                      (2, 70, 64, 8), (1, 47, 96, 32),
+                                      # clusters of 8, 2 and 1 blocks of
+                                      # 32 channels, di % 32 != 0, S % 16
+                                      (1, 100, 2048, 16), (2, 17, 320, 16),
+                                      (1, 3, 40, 16), (2, 49, 200, 8)])
 def test_mamba_scan_function_gradients(cuda, B, S, di, N, with_h0):
     """selective_scan_fused with gradients on, with D and, if asked, h0:
     one launch in the forward and the two backward launches; y and
@@ -810,7 +823,8 @@ def test_mamba_scan_function_gradients(cuda, B, S, di, N, with_h0):
     assert ms.bwd_launches == bwd_before + 2
     plain = [t.detach() for t in ins] + ([] if with_h0 else [None])
     want = ref.mamba_scan_bwd_ref(*plain, wy, wh)
-    again = ms.mamba_scan_bwd(*plain, wy, wh)
+    states = ms._forward(*plain, with_states=True)[2]
+    again = ms.mamba_scan_bwd(*plain, wy, wh, states)
     y_want, h_want = ref.mamba_scan_ref(*plain[:5], plain[6])
     torch.cuda.synchronize()
     _close(y.detach(), (y_want + ins[0] * ins[5]).detach(), 1e-4)
@@ -835,7 +849,8 @@ def test_mamba_scan_backward_kernel_one_cotangent(cuda, gy, gh):
     gen = torch.Generator(cuda).manual_seed(3)
     wy = torch.randn((2, 40, 70), device=cuda, generator=gen) if gy else None
     wh = torch.randn((2, 70, 16), device=cuda, generator=gen) if gh else None
-    got = ms.mamba_scan_bwd(x, dt, A, Bs, Cs, None, None, wy, wh)
+    states = ms._forward(x, dt, A, Bs, Cs, None, None, with_states=True)[2]
+    got = ms.mamba_scan_bwd(x, dt, A, Bs, Cs, None, None, wy, wh, states)
     want = ref.mamba_scan_bwd_ref(x, dt, A, Bs, Cs, None, None, wy, wh)
     torch.cuda.synchronize()
     assert got[5] is None and got[6] is None
@@ -843,15 +858,91 @@ def test_mamba_scan_backward_kernel_one_cotangent(cuda, gy, gh):
         _close(g, w_, SCAN_GRAD_ATOL * float(w_.abs().max()), 0.0)
 
 
-def test_functions_keep_the_inference_path(cuda):
+def test_functions_keep_the_inference_path(cuda, monkeypatch):
     """Without gradients the wrappers launch their kernels as before: no
-    autograd node, one launch a call."""
+    autograd node, one launch a call, and no logsumexp or chunk-state
+    pointer (the serving path writes nothing more); with gradients the
+    forward kernels get both."""
+    seen = []
+
+    def spy(module, at):
+        launch = module._launch
+
+        def call(*a, **k):
+            seen.append(a[at] if len(a) > at else None)
+            return launch(*a, **k)
+        monkeypatch.setattr(module, "_launch", call)
+    spy(fa, 4)                        # _launch(q, k, v, out, lse, ...)
+    spy(ms, 9)                        # _launch(x, ..., h0, states)
     q, k, v = (t.to(cuda).requires_grad_(True)
                for t in _attn(1, 64, 64, 4, 2, 64, torch.bfloat16))
-    before = fa.launches
+    scan = [t.to(cuda).requires_grad_(True) for t in _scan(1, 40, 64, 16)]
+    before = fa.launches, ms.launches
     with torch.no_grad():
         out = ops.mha_flash(q, k, v)
-    assert out.grad_fn is None and fa.launches == before + 1
+        y, _ = ops.selective_scan_fused(*scan)
+    assert out.grad_fn is None and y.grad_fn is None
+    assert (fa.launches, ms.launches) == (before[0] + 1, before[1] + 1)
+    assert seen == [None, None]
+    ops.mha_flash(q, k, v)
+    ops.selective_scan_fused(*scan)
+    assert seen[2].shape == (4, 64) and seen[3].shape == (1, 3, 64, 16)
+
+
+# the forward kernels' logsumexp against the plain one: the scores are
+# fp32 sums of exact bf16 products (another order: ~1e-6 relative), the
+# kernels' exp2 and log2 are good to ~2^-22, so 1e-4 + 1e-5 |lse|; with a
+# softcap the kernels take the hardware's tanh (relative error 2^-11), a
+# score error of up to cap * 2^-11 |tanh| (0.003 at cap 50, |tanh| 0.12)
+LSE_ATOL = {False: 1e-4, True: 3e-3}
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal,window,cap", [
+    (2, 256, 256, 8, 2, 128, True, 0, 0.0),      # wgmma
+    (1, 300, 100, 4, 2, 64, True, 0, 0.0),       # Sq > Sk: dead rows
+    (1, 130, 400, 4, 4, 32, True, 64, 50.0),     # window, softcap
+    (2, 1, 300, 8, 2, 128, True, 0, 0.0),        # decode
+    (1, 2, 9000, 4, 2, 128, True, 32, 50.0),     # decode, one split live
+    (1, 8, 5, 2, 1, 64, True, 0, 0.0),           # decode, Sq > Sk
+])
+def test_forward_kernels_write_the_logsumexp(cuda, B, Sq, Sk, H, K, hd,
+                                             causal, window, cap):
+    """The wgmma and decode kernels' logsumexp (natural log, +inf on a
+    row with no allowed key) against the plain version's."""
+    q, k, v = (t.to(cuda) for t in _attn(B, Sq, Sk, H, K, hd, torch.bfloat16,
+                                           seed=Sq + Sk))
+    qf, kf, vf = (t.transpose(1, 2).reshape(-1, t.shape[1], hd).contiguous()
+                  for t in (q, k, v))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = fa._forward(qf, kf, vf, **kw, scale=None, return_lse=True)
+    want_out, want = ref.flash_attention_ref(qf, kf, vf, **kw,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    dead = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), dead)
+    assert (lse[dead] > 0).all() and (want[dead] > 0).all()
+    _close(lse[~dead], want[~dead], LSE_ATOL[cap > 0], 1e-5)
+    _close(out, want_out, BF16_ATOL, BF16_RTOL)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,di,N", [(2, 512, 256, 16), (1, 33, 130, 4),
+                                      (2, 70, 64, 8), (1, 47, 96, 32),
+                                      (1, 16, 40, 16)])
+def test_scan_kernel_keeps_the_plain_chunk_states(cuda, B, S, di, N,
+                                                  with_h0):
+    """The states the forward kernel keeps every CHUNK steps, bit for bit
+    the plain version's (the kernel rounds h op by op as it does)."""
+    x, dt, A, Bs, Cs, D = (t.to(cuda) for t in _scan(B, S, di, N, seed=S))
+    h0 = torch.randn((B, di, N), device=cuda, generator=torch.Generator(
+        cuda).manual_seed(4)) if with_h0 else None
+    y, h, states = ms._forward(x, dt, A, Bs, Cs, D, h0, with_states=True)
+    _, h_want, want = ref.mamba_scan_ref(x, dt, A, Bs, Cs, h0,
+                                         chunk=ms.CHUNK)
+    torch.cuda.synchronize()
+    assert states.shape == (B, -(-S // ms.CHUNK), di, N)
+    assert torch.equal(states, want)
+    assert torch.equal(h, h_want)
 
 
 # ------------------------------------------------------- the LM serving path
