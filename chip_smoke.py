@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
 
     python3 chip_smoke.py                # from the repository root
-    python3 chip_smoke.py --only layout  # the layout phase alone
+    python3 chip_smoke.py --only layout  # the layout phase alone (or
+                                         # lm, or train_lm)
 
 Phases, each printing one JSON line:
 
@@ -214,31 +215,51 @@ noise against the plain version on the CPU, 0 mismatched words, its time
 no one PyTorch call draws Gumbel noise.
 
 Then the `lm` phase, the LM serving path (`launch.serve.BatchedServer`)
-at the published configs (src/repro_torch/configs), full depth, nothing
-cut: qwen3-8b (36 attention layers, every one through flash_attention)
-and then falcon-mamba-7b (64 Mamba layers, every prefill through
-mamba_scan), weights from `BatchedServer(seed=0)`: `prng_key(0)` through
-the threefry kernel (one launch a drawn leaf), each model freed before
-the next is built. Each serves 8 prompts of 128
-tokens (default_rng(0), in [2, vocab)) and 32 greedy tokens; one
-`generate` must launch flash_attention 36 * (1 + 32) = 1188 times at
-qwen3-8b and mamba_scan 64 times at falcon-mamba-7b, and nothing else of
-the two. Layer 0's own calls (the attention at the prefill and at the
-decode steps reading 129 and 160 keys; the scan's y and h_last at the
-prefill) are held to the plain versions on the card at the ops phase's
-limits (ATTN_BF16; an attention call's atol scaled by the std of its v),
-and two planted faults at the same calls (`planted_faults`: a causal mask
-one key short, the first 64-key tile left unread) must fall outside the
-same limit. The first
-LM_CPU_LAYERS layers of the same weights serve 2 prompts of 32 tokens
-and 4 decode steps on the card and, copied, on the CPU, each step
-sampled as a generate samples (the same keys on both sides, the Gumbel
-noise from the kernel and from the plain version, which must be equal
-bit for bit) and the CPU's sampled tokens fed to both: every logit
-within LM_LOGIT_RTOL of the CPU's largest, greedy tokens equal wherever
-the top-2 margin exceeds twice that (the smallest such margin printed),
-sampled tokens equal wherever the top-2 margin of logits plus noise
-exceeds twice the largest logit error (every margin printed). One
+at the published configs (src/repro_torch/configs), at full width, one
+model after another (LM_CELLS): qwen3-8b (36 attention layers, every one
+through flash_attention), falcon-mamba-7b (64 Mamba layers, every
+prefill through mamba_scan), gemma2-27b (46 layers, sliding window and
+softcap on half of them, a tied 256,000-row head), whisper-tiny (4
+logical decoder layers of self- and cross-attention at head width 64,
+and its 4-layer bidirectional encoder over 1500 frames),
+llama-3.2-vision-90b (30 of its 100 layers: tanh-gated cross-attention
+over 1600 patch embeddings every 5th) and llama4-scout (12 of its 48
+layers: MoE 16 x top-1 plus a shared expert, NoPE global layers through
+the kernel, chunked layers on torch's dense path), the cuts named in
+each row's `reduced`. Weights come from `BatchedServer(seed=0)`:
+prng_key(0) through the threefry kernel (one launch a drawn leaf),
+drawn as the bf16 serving copy, so that the build's peak is the serving
+copy's size (within LM_BUILD_SLACK_GB), and three 2^16-element slices of
+every drawn leaf equal to the plain version's bit for bit. Each serves 8
+prompts of 128 tokens (default_rng(0), in [2, vocab)) and 32 greedy
+tokens; one `generate` must launch flash_attention once a kernel-route
+attention layer a step (and once an encoder layer) and mamba_scan once a
+Mamba layer, exactly (1188 at qwen3-8b, 64 at falcon-mamba-7b). The
+first call of each attention kind (causal, window, bidirectional) at the
+prefill and at the decode steps reading 129 and 160 keys, and the first
+bidirectional call at each query length (whisper's encoder, the cross
+layers at the prefill and at a decode step; llama-vision's from one more
+prefill and decode step over a seeded memory: its server feeds zeros),
+and the scan's y and h_last at the prefill, are held to the plain
+versions on the card at the ops phase's limits (ATTN_BF16 by the keys a
+row sees; an attention call's atol scaled by the std of its v), and two
+planted faults at the same calls (`planted_faults`, by the call's mask
+and length) must fall outside the same limit. gemma2-27b serves one
+more greedy generate of 2 prompts of 6144 tokens and 8 tokens, where its
+window cuts keys, with its calls at the prefill (the last 1024 query
+rows) and the first and last decode steps held the same way. The first
+superblocks (at least LM_CPU_LAYERS layers) of the same weights serve 2
+prompts of 32 tokens and 4 decode steps on the card and, copied, on the
+CPU, with the cross-attention's memory (whisper: its frames) from a seed
+and llama-vision's gates at LM_CPU_XGATE, an MoE layer on the card
+taking the CPU's experts (the smallest router top-2 margin printed),
+each step sampled as a generate samples (the same keys on both sides,
+the Gumbel noise from the kernel and from the plain version, which must
+be equal bit for bit) and the CPU's sampled tokens fed to both: every
+logit within LM_LOGIT_RTOL of the CPU's largest, greedy tokens equal
+wherever the top-2 margin exceeds twice that (the smallest such margin
+printed), sampled tokens equal wherever the top-2 margin of logits plus
+noise exceeds twice the largest logit error (every margin printed). One
 sampled `generate` (seed LM_SAMPLE_SEED) on the full model must launch
 the Gumbel kernel once a decode step, its first and last steps' noise
 equal to the plain version's bit for bit.
@@ -247,7 +268,8 @@ The line gives prefill and decode seconds and tok/s of a warm
 copy's weights a step reads over 3.35 TB/s), the last LM_PROFILED steps
 under torch.profiler (device busy ms, idle share, time by kernel; null
 if the profiler returned no device events), the device ms a step spends
-copying k and v out of the cache for the kernel, and peak device memory.
+copying k and v out of the cache for the kernel, the build's seconds and
+peak and the serving copy's and the phase's peak device memory.
 Every check runs before any fails. It runs after every other
 torch.profiler reading.
 
@@ -271,8 +293,14 @@ and the gradients its backward kernels return at theirs (against the
 plain backward on the call's inputs, output and cotangent); two planted
 faults (one element of the call's output, one of the gradient it
 returns) must take more than TRAIN_FAULT_SHARE times their limits; and
-the first TRAIN_CPU_LAYERS layers against the CPU (loss and gradient
-norm). The line gives ms a step (median after the first),
+the first TRAIN_CPU_LAYERS layers, copied, through every step of the
+cell's schedule on the card and on the CPU (each step's loss within
+TRAIN_CPU_LOSS_RTOL, the first gradient norm within
+TRAIN_CPU_GNORM_RTOL). After the steps, qwen3-8b's cell is built again
+from its seed and runs the same steps on the same batches with the
+plain versions in place of the kernels, forward and backward: each
+loss within TRAIN_PLAIN_LOSS_RTOL of the kernels' run, and no kernel
+launched. The line gives ms a step (median after the first),
 tokens/s, peak GB, the last step under torch.profiler (device busy ms,
 idle share, top kernels), and the step's model FLOPs and their share of
 989 TFLOP/s. Then `launch.train.train` itself, at the reduced
@@ -331,8 +359,10 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import pathlib
 import re
@@ -377,14 +407,13 @@ from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
-from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.launch.train import batch_on  # noqa: E402
 from repro_torch.launch.train import make_train_step as train_step_fn  # noqa: E402,E501
 from repro_torch.launch.train import train as train_lm  # noqa: E402
 from repro_torch.learn import (AdaptiveCurriculum, PolicyStore,  # noqa: E402
                                TrajectoryHarvester, make_online_loop)
 from repro_torch.models import attention, blocks, lm, moe  # noqa: E402
-from repro_torch.optim import AdamWConfig, adamw_init, global_norm  # noqa: E402,E501
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.optim.compress import (compressed_psum,  # noqa: E402
                                         dequantize_int8, quantize_int8)
 from repro_torch.serve.deltas import DeltaBatch, apply_delta  # noqa: E402
@@ -2564,25 +2593,80 @@ def gumbel_step(cfg, bad):
 
 # --------------------------------------------------------------- lm phase
 # The LM serving path (`launch.serve.BatchedServer`) at the published
-# configs (src/repro_torch/configs), full depth, weights from
-# prng_key(0) through the threefry kernel: LM_REQUESTS prompts of LM_PROMPT
-# tokens from default_rng(0) in [2, vocab), then LM_GEN greedy tokens.
-LM_ARCHS = ("qwen3-8b", "falcon-mamba-7b")
+# configs (src/repro_torch/configs), weights from prng_key(0) through the
+# threefry kernel, drawn as the server's bf16 serving copy: LM_REQUESTS
+# prompts of LM_PROMPT tokens from default_rng(0) in [2, vocab), then
+# LM_GEN greedy tokens. (arch, layers kept, None for the published depth):
+# the depth cut only where the bf16 weights would not leave the phase's
+# transients room on the card's 80 GB: llama-3.2-vision-90b's 100 layers
+# (87.67 B parameters) to 30, six superblocks (27.8 B, 55.6 GB), and
+# llama4-scout's 48 (107.77 B) to 12, three superblocks (28.5 B, 57.0 GB).
+# jamba-1.5-large is not served: one superblock of its pattern is 44.16 B
+# parameters, 88.3 GB.
+LM_CELLS = (("qwen3-8b", None), ("falcon-mamba-7b", None),
+            ("gemma2-27b", None), ("whisper-tiny", None),
+            ("llama-3.2-vision-90b", 30), ("llama4-scout-17b-a16e", 12))
 LM_REQUESTS, LM_PROMPT, LM_GEN = 8, 128, 32
-# layer 0's attention calls held to the plain version: the prefill and the
-# decode steps that read 129 and 160 keys (the first and the last)
+# the attention calls held to the plain version: of each kind (causal,
+# window, bidirectional) the first at the prefill and at the decode steps
+# that read 129 and 160 keys (layer 0's; the local and the global layer's
+# at gemma2), and the first bidirectional call of each (Sq, Sk): whisper's
+# encoder over its 1500 frames, the cross layers at the prefill and at a
+# decode step over 1500 (whisper) or 1600 (llama-vision) memory tokens.
+# The server feeds llama-vision zero patch embeddings, whose k and v are
+# 0: its cross layers' calls are recorded from one more prefill and
+# decode step of the served model over a memory from LM_MEMORY_SEED.
 LM_ATTN_SK = (LM_PROMPT, LM_PROMPT + 1, LM_PROMPT + LM_GEN)
-# card against CPU: the first LM_CPU_LAYERS layers of the same weights,
-# LM_CPU_REQUESTS prompts cut to LM_CPU_PROMPT tokens, LM_CPU_STEPS decode
-# steps fed the CPU's greedy tokens. Both sides compute in the config's
-# bf16 and round it at other places (cuBLAS against the CPU's GEMMs, the
-# kernel's P rounded to bf16 for P.V against the plain version's fp32
-# softmax): every logit within LM_LOGIT_RTOL of the CPU's largest |logit|,
-# the bf16 limit the CPU tests hold the port to against the reference
-# (tests/torch_lm_cases.py); greedy tokens equal wherever the CPU's
-# top-2 margin exceeds twice that.
+LM_MEMORY_SEED = 2
+# Each call at the ops phase's limits (ATTN_BF16) by the keys its rows
+# see: the decode limit is stated for rows that see 4093 to 4096 keys
+# (the ops phase's decode cases), over which the kernel's bf16 rounding of
+# P for the P.V product averages out; a row that sees fewer keys, as
+# every prefill row and the decode rows at LM_PROMPT + 1 to LM_PROMPT +
+# LM_GEN or over the cross layers' memory do, takes the limit stated for
+# rows with few keys, the prefill's. (At gemma2-27b's and
+# llama-vision's decode over 129 and 160 keys, where layer 0's
+# attention falls on a few keys, the kernel needed 1.1e-3 to 1.5e-3 of
+# v's std: above the decode atol, within the prefill's.)
+ATTN_DECODE_KEYS = 4093
+# gemma2-27b's window (4096) cuts no key at LM_PROMPT + LM_GEN: one more
+# greedy generate of (requests, prompt, gen) tokens, in which the window
+# cuts keys at the prefill and at every decode step. Its local and global
+# calls at the prefill and the first and last decode steps are held to
+# the plain version on their last LM_CHECK_ROWS query rows (right-aligned:
+# each sees the window cut), the plain version's scores a few GB beside
+# 54.5 GB of weights.
+LM_LONG = {"gemma2-27b": (2, 6144, 8)}
+LM_CHECK_ROWS = 1024
+# a call over more keys than LM_LONG_SK: its rows read thousands of keys,
+# where one key is lost in the rounding; its planted faults drop a whole
+# 128-key tile of the wgmma kernel (the most recent keys, or the first,
+# or, past the window, the window itself)
+LM_LONG_SK = 1024
+LM_FAULT_TILE = 128
+# card against CPU: the first superblocks of the same weights, at least
+# LM_CPU_LAYERS layers (a whole superblock: 4 at llama4, 5 at
+# llama-vision), LM_CPU_REQUESTS prompts cut to LM_CPU_PROMPT tokens,
+# LM_CPU_STEPS decode steps fed the CPU's sampled tokens. Both sides
+# compute in the config's bf16 and round it at other places (cuBLAS
+# against the CPU's GEMMs, the kernel's P rounded to bf16 for P.V
+# against the plain version's fp32 softmax): every logit within
+# LM_LOGIT_RTOL of the CPU's largest |logit|, the bf16 limit the CPU
+# tests hold the port to against the reference (tests/torch_lm_cases.py);
+# greedy tokens equal wherever the CPU's top-2 margin exceeds twice that.
+# The cross-attention's memory (whisper: its frames, through the encoder)
+# comes from LM_MEMORY_SEED, and llama-vision's every `xgate` is
+# LM_CPU_XGATE in both copies: with the server's zero memory and zero
+# gates the cross layers would not reach the logits. An MoE layer on the
+# card takes the experts the CPU chose, with its own gates (a token near
+# a tie of router probabilities would go to another expert where bf16
+# rounds the other way); the smallest router top-2 margin is printed.
 LM_CPU_LAYERS, LM_CPU_REQUESTS, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 2, 32, 4
+LM_CPU_XGATE = 0.5
 LM_LOGIT_RTOL = 3e-2
+# the serving build holds nothing beside the serving copy: its peak
+# within LM_BUILD_SLACK_GB of what the server keeps
+LM_BUILD_SLACK_GB = 1.0
 # sampled decoding (`generate(greedy=False, seed=LM_SAMPLE_SEED)`): the
 # Gumbel noise the kernel draws at a generate's first and last decode
 # steps equal to the plain version's bit for bit; in the card-vs-CPU
@@ -2605,7 +2689,7 @@ class Recorder:
     def __enter__(self):
         def record(*args, **kw):
             out = self.fn(*args, **kw)
-            key = self.keep(*args)
+            key = self.keep(*args, **kw)
             if key is not None and key not in self.calls:
                 self.calls[key] = (tuple(a.clone() if torch.is_tensor(a)
                                          else a for a in args),
@@ -2620,42 +2704,90 @@ class Recorder:
         setattr(ops, self.name, self.fn)
 
 
+def attention_kind(kw) -> str:
+    """An `ops.mha_flash` call's mask: "causal", "window" or "bidir"."""
+    if not kw.get("causal", True):
+        return "bidir"
+    return "window" if kw.get("window") else "causal"
+
+
+def attention_keep(sks, bidir=True):
+    """A Recorder's pick: (kind, Sq, Sk) of a call whose Sk is in `sks`,
+    or of any bidirectional call with `bidir`."""
+    def keep(q, k, v, **kw):
+        kind = attention_kind(kw)
+        if k.shape[1] in sks or (bidir and kind == "bidir"):
+            return kind, q.shape[1], k.shape[1]
+        return None
+    return keep
+
+
 def planted_faults(qf, kf, vf, kw):
     """Two wrong kernels at a call's own inputs, made of the plain version
-    on cut inputs: "last_key" a causal mask one key short (right-aligned,
-    k and v without their last key), "first_tile" rows past the first
-    64-key tile that do not read it (the rows in it, and their keys, on
-    their own; then the rest without it)."""
-    Sq = qf.shape[1]
+    on cut inputs. Causal and window calls: "last_key" a mask one key
+    short (right-aligned, k and v without their last key) and
+    "first_tile" rows past the first 64-key tile that do not read it
+    (the rows in it, and their keys, on their own; then the rest without
+    it); over more than LM_LONG_SK keys "last_tile", the last
+    LM_FAULT_TILE keys left out (right-aligned: each row loses its most
+    recent ones), and "first_tile" the first LM_FAULT_TILE left out, or,
+    where the window cuts keys, "no_window", the window ignored.
+    Bidirectional calls: "first_tile", the first 64 keys left out, and
+    "last_tile", the ragged last tile's (Sk mod 64, or 64)."""
+    kind = attention_kind(kw)
+    Sq, Sk = qf.shape[1], kf.shape[1]
+    if kind == "bidir":
+        tail = Sk % 64 or 64
+        return {"first_tile": attention_plain(qf, kf[:, 64:], vf[:, 64:],
+                                              **kw),
+                "last_tile": attention_plain(qf, kf[:, :-tail],
+                                             vf[:, :-tail], **kw)}
+    if Sk > LM_LONG_SK:
+        t = LM_FAULT_TILE
+        faults = {"last_tile": attention_plain(qf, kf[:, :-t], vf[:, :-t],
+                                               **kw)}
+        if kind == "window" and Sk > kw["window"]:
+            faults["no_window"] = attention_plain(qf, kf, vf,
+                                                  **{**kw, "window": 0})
+        else:
+            faults["first_tile"] = attention_plain(qf, kf[:, t:], vf[:, t:],
+                                                   **kw)
+        return faults
     last_key = attention_plain(qf, kf[:, :-1], vf[:, :-1], **kw)
-    T = 64 - (kf.shape[1] - Sq)        # the query rows within the tile
+    T = 64 - (Sk - Sq)                 # the query rows within the tile
     rest = attention_plain(qf[:, max(T, 0):], kf[:, 64:], vf[:, 64:], **kw)
     first_tile = rest if T <= 0 else torch.cat(
         (attention_plain(qf[:, :T], kf[:, :64], vf[:, :64], **kw), rest), 1)
     return {"last_key": last_key, "first_tile": first_tile}
 
 
-def lm_attention_checks(calls):
-    """Layer 0's recorded attention calls against the plain version on
-    the card, in the kernel's layout; each with the share of the same
-    limit that the two planted faults take, which must exceed 1."""
-    rows = []
-    for Sk, ((q, k, v), kw, out) in sorted(calls.items()):
-        phase = "prefill" if q.shape[1] > 1 else "decode"
-        qf, kf, vf, of = flat_attention({"args": (q, k, v), "out": out})
-        atol, rtol = ATTN_BF16[phase]
-        row = attention_closeness(f"{phase}/Sk{Sk}", qf, kf, vf, of, kw,
-                                  atol, rtol)
+def lm_attention_checks(calls, rows=None):
+    """The recorded attention calls against the plain version on the
+    card, in the kernel's layout (with `rows`, a prefill's last `rows`
+    query rows); each with the share of the same limit that the two
+    planted faults take, which must exceed 1."""
+    out = []
+    for (kind, Sq, Sk), ((q, k, v), kw, o) in sorted(calls.items()):
+        phase = "prefill" if Sq > 1 else "decode"
+        qf, kf, vf, of = flat_attention({"args": (q, k, v), "out": o})
+        if rows is not None and Sq > rows:
+            qf, of = qf[:, -rows:], of[:, -rows:]
+        seen = min(Sk, kw["window"]) if kind == "window" else Sk
+        atol, rtol = ATTN_BF16["decode" if Sq == 1
+                               and seen >= ATTN_DECODE_KEYS else "prefill"]
+        row = attention_closeness(f"{kind}/{phase}/Sq{Sq}/Sk{Sk}", qf, kf,
+                                  vf, of, kw, atol, rtol)
+        row["rows_checked"] = qf.shape[1]
         want = attention_plain(qf, kf, vf, **kw)
         row["planted_limit_share"] = {
             name: closeness(name, bad, want, row["atol"],
                             rtol)["limit_share"]
             for name, bad in planted_faults(qf, kf, vf, kw).items()}
         row["ok"] = row["ok"] and min(row["planted_limit_share"].values()) > 1
-        row["path"] = fa.kernel_path(qf.shape[0], kf.shape[0], qf.shape[1],
-                                     Sk, qf.shape[2], qf.dtype)
-        rows.append(row)
-    return rows
+        row["path"] = fa.kernel_path(qf.shape[0], kf.shape[0], Sq, Sk,
+                                     qf.shape[2], qf.dtype)
+        out.append(row)
+    return out
 
 
 def lm_scan_checks(calls):
@@ -2667,12 +2799,27 @@ def lm_scan_checks(calls):
     return rows
 
 
+def kernel_layers(cfg):
+    """(attention layers on the kernel's route, Mamba layers) of a
+    stack."""
+    attn = cfg.n_superblocks * sum(
+        s.mixer != "mamba" and cfg.mla is None and attention.kernel_route(
+            attention.MIXER_KIND[s.mixer], cfg.hd, cfg.hd)
+        for s in cfg.block_pattern)
+    return attn, cfg.n_superblocks * sum(
+        s.mixer == "mamba" for s in cfg.block_pattern)
+
+
 def decode_weight_bytes(serving, cfg, B) -> int:
     """Bytes of weights one decode step reads: every leaf of the serving
-    copy, but for an untied embedding only the B rows it gathers."""
+    copy but the encoder's, for an untied embedding and learned positions
+    only the B rows gathered (every expert of an MoE layer counted)."""
     total = 0
     for path, t in flatten(serving):
-        if path == "embed" and not cfg.tie_embeddings:
+        if path.startswith("encoder/"):
+            continue
+        if (path == "embed" and not cfg.tie_embeddings) \
+                or path == "pos_embed":
             total += B * t.shape[1] * t.element_size()
         else:
             total += t.numel() * t.element_size()
@@ -2692,7 +2839,8 @@ def decode_steps(server, prompts):
     times = []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     with torch.inference_mode():
-        logits, cache = lm.prefill(p, toks, cfg, LM_PROMPT + LM_GEN)
+        logits, cache = lm.prefill(p, toks, cfg, LM_PROMPT + LM_GEN,
+                                   memory=server.memory(len(prompts)))
         tok = logits.argmax(-1)[:, None]
         for t in range(LM_GEN):
             if t == LM_GEN - LM_PROFILED:
@@ -2743,28 +2891,87 @@ def cache_copy_ms(cfg, attn_layers):
     return sum(t for _, t in kernels) / calls * attn_layers
 
 
+def seeded_source(cfg, B, device):
+    """The cross-attention's input from LM_MEMORY_SEED, unit normal: the
+    memory (B, vision_tokens, d_model) in cfg.cdtype (vlm) or the frames
+    (B, n_frames, d_model) fp32 its encoder reads (enc-dec); else None."""
+    if cfg.family == "vlm":
+        M = cfg.vision_tokens
+    elif cfg.encoder is not None:
+        M = cfg.encoder.n_frames
+    else:
+        return None
+    src = torch.from_numpy(np.random.default_rng(LM_MEMORY_SEED)
+                           .standard_normal((B, M, cfg.d_model))
+                           .astype(np.float32)).to(device)
+    return src.to(cfg.cdtype) if cfg.family == "vlm" else src
+
+
+class RouteTap:
+    """Stands in for `moe.route`: records each call's experts (and the
+    smallest top-2 router margin) where `impose` is off, and hands the
+    recorded experts back, in order, with the caller's own gates, where
+    it is on."""
+
+    def __init__(self):
+        self.routes, self.impose, self.margin = [], False, None
+        self.fn = moe.route
+
+    def __enter__(self):
+        def route(probs, K):
+            if not self.impose:
+                gate, eidx = self.fn(probs, K)
+                top2 = probs.float().topk(2, dim=-1).values
+                m = float((top2[:, 0] - top2[:, 1]).min())
+                self.margin = m if self.margin is None else \
+                    min(self.margin, m)
+                self.routes.append(eidx)
+                return gate, eidx
+            eidx = self.routes.pop(0).to(probs.device)
+            gate = probs.gather(-1, eidx)
+            return gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), eidx
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self.fn
+
+
 def lm_card_vs_cpu(server, prompts):
-    """The first LM_CPU_LAYERS layers of the server's serving copy on the
-    card and, copied, on the CPU: prefill logits, then LM_CPU_STEPS decode
-    steps fed the CPU's sampled tokens. Each step (the prefill's too)
-    samples as a generate does: key, k = split(key) from
-    prng_key(LM_SAMPLE_SEED), the token argmax(logits + gumbel(k)), the
-    noise from the kernel on the card and the plain version on the CPU.
-    Returns the comparison's row."""
-    cfg = dataclasses.replace(server.cfg, n_layers=LM_CPU_LAYERS)
+    """The first superblocks (at least LM_CPU_LAYERS layers) of the
+    server's serving copy on the card and, copied, on the CPU: prefill
+    logits, then LM_CPU_STEPS decode steps fed the CPU's sampled tokens.
+    Each step (the prefill's too) samples as a generate does: key, k =
+    split(key) from prng_key(LM_SAMPLE_SEED), the token argmax(logits +
+    gumbel(k)), the noise from the kernel on the card and the plain
+    version on the CPU. The memory from `seeded_source`, llama-vision's
+    gates at LM_CPU_XGATE; an MoE layer on the card takes the CPU's
+    experts. Returns the comparison's row."""
+    pattern = len(server.cfg.block_pattern)
+    layers = pattern * -(-LM_CPU_LAYERS // pattern)
+    cfg = dataclasses.replace(server.cfg, n_layers=layers)
     card = dict(server.serving,
                 stack=tree_map(lambda t: t[:cfg.n_superblocks],
                                server.serving["stack"]))
+    card = unflatten(card, {path: torch.full_like(t, LM_CPU_XGATE)
+                            if path.endswith("xgate") else t
+                            for path, t in flatten(card)})
     cpu = tree_map(lambda t: t.cpu(), card)
     toks = prompts[:LM_CPU_REQUESTS, :LM_CPU_PROMPT].astype(np.int64)
+    source = seeded_source(cfg, LM_CPU_REQUESTS, "cpu")
     runs, noises, fed = {}, {}, []
     t0 = time.perf_counter()
-    for side, p in (("cpu", cpu), ("cuda", card)):
-        key = prng.prng_key(LM_SAMPLE_SEED)
-        out, noise = [], []
-        with torch.inference_mode():
+    with RouteTap() as routes, torch.inference_mode():
+        for side, p in (("cpu", cpu), ("cuda", card)):
+            routes.impose = side == "cuda"
+            key = prng.prng_key(LM_SAMPLE_SEED)
+            memory = None if source is None else source.to(side)
+            if cfg.encoder is not None:
+                memory = lm.encode(p, memory, cfg)
+            out, noise = [], []
             logits, cache = lm.prefill(p, torch.as_tensor(toks, device=side),
-                                       cfg, LM_CPU_PROMPT + LM_CPU_STEPS)
+                                       cfg, LM_CPU_PROMPT + LM_CPU_STEPS,
+                                       memory=memory)
             for s in range(LM_CPU_STEPS + 1):
                 key, k = prng.split(key)
                 g = threefry.gumbel(k, logits.numel(), device=side)
@@ -2776,8 +2983,9 @@ def lm_card_vs_cpu(server, prompts):
                     fed.append((out[-1] + noise[-1]).argmax(-1)[:, None])
                 logits, cache = lm.decode_step(p, fed[s].to(side), cache,
                                                cfg, LM_CPU_PROMPT + s)
-        runs[side], noises[side] = out, noise
-        del cache
+            runs[side], noises[side] = out, noise
+            del cache, memory
+        routes_left = len(routes.routes)
     limit = LM_LOGIT_RTOL * float(max(t.abs().max() for t in runs["cpu"]))
     err = max(float((got - want).abs().max())
               for want, got in zip(runs["cpu"], runs["cuda"]))
@@ -2797,11 +3005,15 @@ def lm_card_vs_cpu(server, prompts):
         z_margins += margin.tolist()
         z_flips += int((z_got.argmax(-1) != z_want.argmax(-1))[sure].sum())
     compared = [m for m in z_margins if m > 2 * err]
-    return {"layers": LM_CPU_LAYERS, "requests": LM_CPU_REQUESTS,
+    return {"layers": layers, "requests": LM_CPU_REQUESTS,
             "prompt": LM_CPU_PROMPT, "decode_steps": LM_CPU_STEPS,
+            "memory": None if source is None else
+            {"seed": LM_MEMORY_SEED, "shape": list(source.shape),
+             "xgate": LM_CPU_XGATE if cfg.family == "vlm" else None},
+            "moe_min_router_margin": routes.margin,
             "max_abs_err": err, "limit": limit, "rtol": LM_LOGIT_RTOL,
             "ok": (err <= limit and flips == 0 and z_flips == 0
-                   and noise_mismatches == 0),
+                   and noise_mismatches == 0 and routes_left == 0),
             "tokens_compared": len(margins), "token_flips": flips,
             "min_compared_margin": min(margins, default=None),
             "sampled": {"seed": LM_SAMPLE_SEED,
@@ -2817,7 +3029,7 @@ def leaves_drawn(cfg) -> int:
     """The threefry normal draws (one launch each) a build of `cfg` makes:
     its wrapper's calls in a build on `meta`."""
     with DrawTap(threefry, "normal") as tap:
-        lm.init_params(None, cfg, device="meta")
+        lm.init_params(None, cfg, device="meta", serving=True)
     return len(tap.calls)
 
 
@@ -2848,41 +3060,106 @@ def sampled_generate(server, prompts, bad):
     return row, launched
 
 
-def lm_serve(arch, bad):
+def seeded_cross_calls(server, prompts):
+    """llama-vision's cross layers' kernel calls over a memory from
+    LM_MEMORY_SEED (the server feeds zeros, whose k and v are 0): a
+    prefill of `prompts` and one decode step of the served model, the
+    first bidirectional call of each Sq recorded."""
+    cfg = server.cfg
+    toks = torch.as_tensor(prompts.astype(np.int64), device="cuda")
+    memory = seeded_source(cfg, len(prompts), "cuda")
+    with Recorder("mha_flash", attention_keep(())) as rec, \
+            torch.inference_mode():
+        logits, cache = lm.prefill(server.serving, toks, cfg,
+                                   LM_PROMPT + 1, memory=memory)
+        lm.decode_step(server.serving, logits.argmax(-1)[:, None], cache,
+                       cfg, LM_PROMPT)
+    torch.cuda.synchronize()
+    return rec.calls
+
+
+def long_generate(server, long, bad):
+    """gemma2's generate at LM_LONG's prompt, where the window cuts keys:
+    exact launches, and its local and global calls at the prefill and the
+    first and last decode steps against the plain version on their last
+    LM_CHECK_ROWS rows; `long` is its (requests, prompt, gen). Returns
+    its row and its launches."""
+    cfg = server.cfg
+    B, P, G = long
+    prompts = np.random.default_rng(1).integers(
+        2, cfg.vocab_size, (B, P)).astype(np.int32)
+    attn_layers, _ = kernel_layers(cfg)
+    want = attn_layers * (1 + G)
+    fa.launches = 0
+    with Recorder("mha_flash", attention_keep((P, P + 1, P + G),
+                                              bidir=False)) as rec:
+        out, stats = server.generate(prompts, G)
+    torch.cuda.synchronize()
+    launched = fa.launches
+    checks = lm_attention_checks(rec.calls, rows=LM_CHECK_ROWS)
+    del rec
+    row = {"requests": B, "prompt": P, "gen": G, "window": cfg.window,
+           "launches": launched, "want_launches": want, **stats,
+           "sample": out[0].tolist(), "kernel_checks": checks,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if launched != want:
+        bad.append(f"{cfg.name}: the long generate launched {launched}, "
+                   f"want {want}")
+    if len(checks) != 6:
+        bad.append(f"{cfg.name}: the long generate recorded {len(checks)} "
+                   f"kernel calls")
+    bad += [f"{cfg.name}: long: {c}" for c in checks if not c["ok"]]
+    return row, launched
+
+
+def lm_serve(arch, layers, bad):
     """One model of the lm phase. Returns its row and its launches."""
-    cfg = registry.get_config(arch)
+    published = registry.get_config(arch)
+    cfg = published if layers is None else \
+        dataclasses.replace(published, n_layers=layers)
+    gc.collect()            # the last model's weights, held by a cycle
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     threefry.normal_launches = 0
-    server = BatchedServer(cfg, max_batch=LM_REQUESTS, seed=0,
-                           max_len=LM_PROMPT + LM_GEN, device="cuda")
+    with DrawTap(threefry, "normal") as draws:
+        server = BatchedServer(cfg, max_batch=LM_REQUESTS, seed=0,
+                               max_len=LM_PROMPT + LM_GEN, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     drawn = threefry.normal_launches
     if drawn != leaves_drawn(cfg):
         bad.append(f"{arch}: the build launched threefry {drawn} times for "
                    f"{leaves_drawn(cfg)} drawn leaves")
-    # the build's peak holds the fp32 tree and its serving copy at once
+    # the serving copy drawn as such: the build holds nothing more
     build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     serving_gb = torch.cuda.memory_allocated() / 1e9
+    if build_peak_gb - serving_gb > LM_BUILD_SLACK_GB:
+        bad.append(f"{arch}: the build's peak {build_peak_gb} GB, the "
+                   f"serving copy {serving_gb} GB")
+    slices, _ = rng_leaf_checks(draws.calls)
+    del draws
+    build_slices = {"leaves": len(slices),
+                    "dtypes": sorted({r["dtype"] for r in slices}),
+                    "checked_words": sum(r["checked"] for r in slices),
+                    "mismatched_words": sum(r["mismatches"]
+                                            for r in slices)}
+    if build_slices["mismatched_words"]:
+        bad.append(f"{arch}: the serving build's slices: {build_slices}")
     torch.cuda.reset_peak_memory_stats()
     prompts = np.random.default_rng(0).integers(
         2, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
-    attn_layers = cfg.n_superblocks * sum(
-        s.mixer != "mamba" and cfg.mla is None and attention.kernel_route(
-            attention.MIXER_KIND[s.mixer], cfg.hd, cfg.hd)
-        for s in cfg.block_pattern)
-    mamba_layers = cfg.n_superblocks * sum(
-        s.mixer == "mamba" for s in cfg.block_pattern)
-    want = {"flash_attention": attn_layers * (1 + LM_GEN),
+    attn_layers, mamba_layers = kernel_layers(cfg)
+    enc_layers = (kernel_layers(cfg.encoder_cfg())[0]
+                  if cfg.encoder is not None else 0)
+    want = {"flash_attention": attn_layers * (1 + LM_GEN) + enc_layers,
             "mamba_scan": mamba_layers}
 
     fa.launches = ms.launches = 0
-    with Recorder("mha_flash", lambda q, k, v: k.shape[1]
-                  if k.shape[1] in LM_ATTN_SK else None) as attn, \
+    with Recorder("mha_flash", attention_keep(
+            LM_ATTN_SK, bidir=cfg.family != "vlm")) as attn, \
             Recorder("selective_scan_fused",
-                     lambda x, *a: "prefill" if x.shape[1] > 1
+                     lambda x, *a, **kw: "prefill" if x.shape[1] > 1
                      else None) as scan:
         out, _ = server.generate(prompts, LM_GEN)
     torch.cuda.synchronize()
@@ -2890,36 +3167,52 @@ def lm_serve(arch, bad):
     if launched != want:
         bad.append(f"{arch}: a generate launched {launched}, want {want}")
     launched = dict(launched)
-    checks = lm_attention_checks(attn.calls) + lm_scan_checks(scan.calls)
-    if len(checks) != (len(LM_ATTN_SK) if attn_layers else 0) \
-            + (2 if mamba_layers else 0):
-        bad.append(f"{arch}: recorded {len(checks)} kernel calls")
+    calls = dict(attn.calls)
+    if cfg.family == "vlm":
+        calls.update(seeded_cross_calls(server, prompts))
+    checks = lm_attention_checks(calls) + lm_scan_checks(scan.calls)
+    kinds = {attention.MIXER_KIND[s.mixer] for s in cfg.block_pattern
+             if s.mixer != "mamba" and attention.kernel_route(
+                 attention.MIXER_KIND[s.mixer], cfg.hd, cfg.hd)}
+    want_checks = len(LM_ATTN_SK) * len(kinds - {"bidir"}) \
+        + 2 * ("bidir" in kinds) + (enc_layers > 0) \
+        + (2 if mamba_layers else 0)
+    if len(checks) != want_checks:
+        bad.append(f"{arch}: recorded {len(checks)} kernel calls, want "
+                   f"{want_checks}")
     bad += [f"{arch}: {c}" for c in checks if not c["ok"]]
-    del attn, scan
+    del attn, scan, calls
     sampled, sampled_launches = sampled_generate(server, prompts, bad)
     launched["threefry_normal"] = drawn
     launched["threefry_gumbel"] = sampled_launches
     _, stats = server.generate(prompts, LM_GEN)         # warm: the times
     step_ms, step_profile = decode_steps(server, prompts)
     weight_bytes = decode_weight_bytes(server.serving, cfg, LM_REQUESTS)
+    long = None
+    if arch in LM_LONG:
+        long, n = long_generate(server, LM_LONG[arch], bad)
+        launched["flash_attention"] += n
     vs_cpu = lm_card_vs_cpu(server, prompts)
     if not vs_cpu["ok"]:
         bad.append(f"{arch}: card and CPU disagree: {vs_cpu}")
-    row = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+    row = {"arch": arch, "layers": cfg.n_layers,
+           "published_layers": published.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "params": cfg.param_count(),
-           "reduced": [], "requests": LM_REQUESTS, "prompt": LM_PROMPT,
+           "reduced": [] if layers is None else
+           [f"n_layers {layers} of {published.n_layers}"],
+           "requests": LM_REQUESTS, "prompt": LM_PROMPT,
            "gen": LM_GEN, "launches": launched, "want_launches": want,
            "finite_tokens": bool(((out >= 0) & (out < cfg.vocab_size)).all()),
            "sample": out[0, :8].tolist(), "build_s": build_s,
-           "build_threefry_launches": drawn, "sampled": sampled,
-           **stats, "decode_step_ms_median": step_ms,
+           "build_threefry_launches": drawn, "build_slices": build_slices,
+           "sampled": sampled, **stats, "decode_step_ms_median": step_ms,
            "decode_step_profile": step_profile,
            "decode_cache_copy_ms": cache_copy_ms(cfg, attn_layers),
            "decode_weight_bytes": weight_bytes,
            "decode_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
            "build_peak_mem_gb": build_peak_gb, "serving_mem_gb": serving_gb,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "kernel_checks": checks, "card_vs_cpu": vs_cpu}
+           "kernel_checks": checks, "long": long, "card_vs_cpu": vs_cpu}
     if not row["finite_tokens"]:
         bad.append(f"{arch}: a token outside the vocabulary")
     del server
@@ -2928,18 +3221,19 @@ def lm_serve(arch, bad):
 
 
 def phase_lm():
-    """The LM serving path at full width and depth: qwen3-8b (every
-    attention layer through flash_attention) and falcon-mamba-7b (every
-    Mamba prefill through mamba_scan), one after the other. Every check
-    runs before any fails. Returns the phase's launches."""
+    """The LM serving path at full width: each LM_CELLS model, one after
+    the other. Every check runs before any fails. Returns the phase's
+    launches."""
     bad, rows = [], []
     total = {"flash_attention": 0, "mamba_scan": 0, "threefry_normal": 0,
              "threefry_gumbel": 0}
     t0 = time.perf_counter()
-    for arch in LM_ARCHS:
-        row, launched = lm_serve(arch, bad)
+    for arch, layers in LM_CELLS:
+        row, launched = lm_serve(arch, layers, bad)
         rows.append(row)
         total = {k: total[k] + launched[k] for k in total}
+        print(f"lm: {arch} {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
     emit({"phase": "lm", "models": rows, "launches": total,
           "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi(),
           "ok": not bad, "mismatches": bad})
@@ -2981,13 +3275,23 @@ TRAIN_LAYER_TOL = 2e-2
 # of that tensor, must take more than this many times its limit
 TRAIN_FAULT_SHARE = 10.0
 # card against CPU: the first TRAIN_CPU_LAYERS layers of the same
-# weights, the first batch cut to TRAIN_CPU_TOKENS tokens of one row:
-# the loss within TRAIN_CPU_LOSS_RTOL and the gradient norm within
-# TRAIN_CPU_GNORM_RTOL of the CPU's (both bf16 compute, rounded at other
-# places: cuBLAS against the CPU's GEMMs, the kernels against the plain
-# versions)
+# weights, copied, through every step of the cell's own schedule
+# (`train_step_fn(cfg, AdamWConfig(lr=TRAIN_LM_LR), steps)`), each step
+# on one row of TRAIN_CPU_TOKENS tokens of the cell's batch: each step's
+# loss within TRAIN_CPU_LOSS_RTOL and the first step's gradient norm
+# within TRAIN_CPU_GNORM_RTOL of the CPU's (both bf16 compute, rounded at
+# other places: cuBLAS against the CPU's GEMMs, the kernels against the
+# plain versions)
 TRAIN_CPU_LAYERS, TRAIN_CPU_TOKENS = 2, 64
 TRAIN_CPU_LOSS_RTOL, TRAIN_CPU_GNORM_RTOL = 1e-2, 5e-2
+# the kernels against the plain versions over whole steps: the cells in
+# TRAIN_PLAIN_HOLD built again from the same seed (after the first run is
+# freed) run the same steps on the same batches with `ops.mha_flash` and
+# `ops.selective_scan_fused` by their plain versions, forward and
+# backward (autograd through `kernels.ref`): each step's loss within
+# TRAIN_PLAIN_LOSS_RTOL of the kernels' run
+TRAIN_PLAIN_HOLD = ("qwen3-8b",)
+TRAIN_PLAIN_LOSS_RTOL = 1e-2
 # the driver itself, `launch.train.train` at the reduced qwen1.5-4b: 6
 # steps with an asynchronous checkpoint at step 3 (a blocking one at 6),
 # then a restore that runs 2 more
@@ -3190,32 +3494,93 @@ def layer0_checks(arch, params, cfg, tokens):
             "planted_fault_shares": faults}
 
 
-def train_card_vs_cpu(params, cfg, tokens):
-    """The first TRAIN_CPU_LAYERS layers of the card's weights, on the
-    card and copied to the CPU: loss and gradient norm of one row of
-    TRAIN_CPU_TOKENS tokens."""
+def train_card_vs_cpu(params, cfg, batches):
+    """The first TRAIN_CPU_LAYERS layers of the card's weights, copied
+    (AdamW steps in place), on the card and on the CPU: a step of the
+    cell's schedule on one row of TRAIN_CPU_TOKENS tokens of each of
+    `batches`: each step's loss and gradient norm."""
     small = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
-    card = dict(params, stack=tree_map(lambda t: t[:small.n_superblocks],
-                                       params["stack"]))
-    toks = tokens[:1, :TRAIN_CPU_TOKENS]
+    sub = dict(params, stack=tree_map(lambda t: t[:small.n_superblocks],
+                                      params["stack"]))
     t0 = time.perf_counter()
     out = {}
-    for side, p in (("cuda", card), ("cpu", tree_map(lambda t: t.cpu(),
-                                                     card))):
-        (loss, _), grads = loss_and_grads(p, {"tokens": toks.to(side)},
-                                          small)
-        out[side] = (float(loss), float(global_norm(grads)))
-        del grads
+    for side in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.detach().to(side, copy=True), sub)
+        opt = adamw_init(p, getattr(torch, cfg.opt_moment_dtype))
+        step_fn = train_step_fn(small, AdamWConfig(lr=TRAIN_LM_LR),
+                                len(batches))
+        losses, norms = [], []
+        for batch in batches:
+            toks = batch["tokens"][:1, :TRAIN_CPU_TOKENS].to(side)
+            p, opt, _, metrics = step_fn(p, opt, 0, {"tokens": toks})
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        out[side] = (losses, norms)
+        del p, opt, step_fn
+    torch.cuda.empty_cache()
     (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    rel = [abs(c - q) / abs(q) for c, q in zip(lc, lp)]
     row = {"layers": TRAIN_CPU_LAYERS, "tokens": TRAIN_CPU_TOKENS,
-           "loss": {"cuda": lc, "cpu": lp, "rel": abs(lc - lp) / abs(lp),
+           "steps": len(batches), "lr": TRAIN_LM_LR,
+           "loss": {"cuda": lc, "cpu": lp, "rel": rel,
                     "rtol": TRAIN_CPU_LOSS_RTOL},
-           "grad_norm": {"cuda": gc, "cpu": gp, "rel": abs(gc - gp) / gp,
-                         "rtol": TRAIN_CPU_GNORM_RTOL},
+           "grad_norm": {"cuda": gc, "cpu": gp,
+                         "rel": [abs(c - q) / q for c, q in zip(gc, gp)],
+                         "rtol_first": TRAIN_CPU_GNORM_RTOL},
            "seconds": time.perf_counter() - t0}
-    row["ok"] = row["loss"]["rel"] <= TRAIN_CPU_LOSS_RTOL and \
-        row["grad_norm"]["rel"] <= TRAIN_CPU_GNORM_RTOL
+    row["ok"] = max(rel) <= TRAIN_CPU_LOSS_RTOL and \
+        row["grad_norm"]["rel"][0] <= TRAIN_CPU_GNORM_RTOL
     return row
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """`ops.mha_flash` and `ops.selective_scan_fused` by their plain
+    versions (differentiable) while it is open."""
+    saved = {n: getattr(ops, n) for n in Tap.NAMES}
+    ops.mha_flash, ops.selective_scan_fused = plain_mha, plain_scan
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def cell_state(cfg, B, S):
+    """A train_lm cell's start: its weights from prng_key(0) on the card,
+    their AdamW state and the cell's batch pipeline."""
+    params = lm.init_params(prng.prng_key(0), cfg, device="cuda")
+    opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
+    pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                               global_batch=B, seed=0, n_logical_shards=B,
+                               shard_range=(0, B))      # B rows a batch
+    return params, opt, pipe
+
+
+def train_plain_hold(cfg, B, S, losses):
+    """The cell's steps again, from the same seed and on the same batches,
+    with the plain versions in place of the kernels (forward and
+    backward): each step's loss against the kernels' `losses`."""
+    t0 = time.perf_counter()
+    params, opt, pipe = cell_state(cfg, B, S)
+    step_fn = train_step_fn(cfg, AdamWConfig(lr=TRAIN_LM_LR), len(losses))
+    plain = []
+    before = {**counts_lm(), **bwd_counts()}
+    with plain_ops():
+        for _ in losses:
+            batch = batch_on(next(pipe), cfg, "cuda")
+            params, opt, _, metrics = step_fn(params, opt, 0, batch)
+            plain.append(float(metrics["loss"]))
+    launched = {k: n - before[k] for k, n in {**counts_lm(),
+                                               **bwd_counts()}.items()}
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(plain, losses)]
+    return {"losses_plain": plain, "losses_kernels": losses, "rel": rel,
+            "rtol": TRAIN_PLAIN_LOSS_RTOL, "kernel_launches": launched,
+            "ok": max(rel) <= TRAIN_PLAIN_LOSS_RTOL
+            and not any(launched.values()),
+            "seconds": time.perf_counter() - t0}
 
 
 def step_flops(cfg, B, S):
@@ -3245,15 +3610,12 @@ def train_cell(arch, layers, B, S, steps, bad):
     then `steps` train steps with every count at 0 before each and read
     after it. Returns the row and the launches."""
     cfg = dataclasses.replace(registry.get_config(arch), n_layers=layers)
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     walls = {}
     t0 = time.perf_counter()
-    params = lm.init_params(prng.prng_key(0), cfg, device="cuda")
-    opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
-    pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=S,
-                               global_batch=B, seed=0, n_logical_shards=B,
-                               shard_range=(0, B))      # B rows a batch
+    params, opt, pipe = cell_state(cfg, B, S)
     first = batch_on(pipe.batch_at(0), cfg, "cuda")
     torch.cuda.synchronize()
     walls["build_s"] = time.perf_counter() - t0
@@ -3262,15 +3624,14 @@ def train_cell(arch, layers, B, S, steps, bad):
     if not layer0["ok"]:
         bad.append(f"{arch}: layer 0 through the kernels: {layer0}")
     walls["layer0_s"] = time.perf_counter() - t0
-    vs_cpu = train_card_vs_cpu(params, cfg, first["tokens"])
+    del opt                 # room for the card-vs-CPU copy and its state
+    torch.cuda.empty_cache()
+    vs_cpu = train_card_vs_cpu(params, cfg, [
+        batch_on(pipe.batch_at(s), cfg, "cpu") for s in range(steps)])
     if not vs_cpu["ok"]:
         bad.append(f"{arch}: card and CPU disagree: {vs_cpu}")
-    attn_layers = cfg.n_superblocks * sum(
-        s.mixer != "mamba" and cfg.mla is None and attention.kernel_route(
-            attention.MIXER_KIND[s.mixer], cfg.hd, cfg.hd)
-        for s in cfg.block_pattern)
-    mamba_layers = cfg.n_superblocks * sum(
-        s.mixer == "mamba" for s in cfg.block_pattern)
+    opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
+    attn_layers, mamba_layers = kernel_layers(cfg)
     # the forward and the remat re-forward, a layer a step; the backward
     # kernels, one call (two launches) a layer a step
     want = {"flash_attention": 2 * attn_layers,
@@ -3326,6 +3687,11 @@ def train_cell(arch, layers, B, S, steps, bad):
            "walls": walls}
     del params, opt, step_fn
     torch.cuda.empty_cache()
+    if arch in TRAIN_PLAIN_HOLD:
+        row["plain_hold"] = train_plain_hold(cfg, B, S, losses)
+        if not row["plain_hold"]["ok"]:
+            bad.append(f"{arch}: the plain versions' steps: "
+                       f"{row['plain_hold']}")
     return row, launches
 
 
@@ -3999,13 +4365,15 @@ def closeness(case, out, want, atol, rtol):
 
 
 def attention_plain(qf, kf, vf, **kw):
-    """ref.flash_attention_ref over slices of PLAIN_HEADS query rows (and
-    their k/v rows), so that the plain version's score matrices stay a few
-    GB (gemma2's 32 heads at S=8192 would take 8.6 GB a matrix)."""
+    """ref.flash_attention_ref over slices of about PLAIN_HEADS query rows
+    (whole GQA groups, and their k/v rows), so that the plain version's
+    score matrices stay a few GB (gemma2's 32 heads at S=8192 would take
+    8.6 GB a matrix)."""
     G = qf.shape[0] // kf.shape[0]
+    step = G * max(PLAIN_HEADS // G, 1)
     out = torch.empty_like(qf)
-    for a in range(0, qf.shape[0], PLAIN_HEADS):
-        b = min(a + PLAIN_HEADS, qf.shape[0])
+    for a in range(0, qf.shape[0], step):
+        b = min(a + step, qf.shape[0])
         out[a:b] = ref.flash_attention_ref(qf[a:b], kf[a // G:b // G],
                                            vf[a // G:b // G], **kw)
     return out
@@ -4727,13 +5095,18 @@ def conv_row(case, tree, p, out):
             "library_ms": None, "library_note": "none"}
 
 
+# the phases `--only` runs alone (after the device and build phases)
+ALONE = {"layout": phase_layout, "lm": phase_lm, "train_lm": phase_train_lm}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one serve on the card")
-    ap.add_argument("--only", choices=["layout"], default=None,
-                    help="run the device, build and this phase alone, "
-                         "with no summary or result line")
+    ap.add_argument("--only", choices=list(ALONE), action="append",
+                    help="run the device and build phases and this phase "
+                         "(repeatable) alone, with no summary or result "
+                         "line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4742,8 +5115,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     phase_build()
-    if args.only == "layout":
-        phase_layout()
+    if args.only:
+        for phase in args.only:
+            ALONE[phase]()
         return 0
     db, wl, meta = deployment()
     tree = load_reference_checkpoint(CKPT)

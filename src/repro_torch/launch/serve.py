@@ -10,7 +10,9 @@ without a CUDA device otherwise. Attention goes through the
 flash-attention kernel and a Mamba prefill through the scan kernel
 (`kernels.ops`); everything else is eager torch (no `torch.compile`, no
 CUDA graph). The server decodes from its serving copy of the weights
-(`lm.serving_params`), cast once.
+(`lm.serving_params`): cast once from given parameters, or, from a seed,
+drawn as that copy (`lm.init_params(..., serving=True)`), so that the
+parameters in `param_dtype` are never held on the device.
 
 A seed gives the reference's server: its weights are
 `lm.init_params(prng_key(seed))`, the reference's bit for bit, and a
@@ -41,9 +43,10 @@ class BatchedServer:
 
     `params`: the parameters (`lm.init_params`'s tree, e.g. a reference's
     carried across by `checkpoint.lm_params_from_numpy`), moved to the
-    device; without them, `lm.init_params(prng_key(seed))` on the device,
-    the reference server's weights. The server keeps only their serving
-    copy (`serving`)."""
+    device and cast; without them, the serving copy of
+    `lm.init_params(prng_key(seed))`, the reference server's weights,
+    drawn as such on the device. The server keeps only the serving copy
+    (`serving`)."""
 
     def __init__(self, cfg, *, max_batch: int = 8, max_len: int = 512,
                  seed: int = 0, params=None, device=None):
@@ -52,14 +55,30 @@ class BatchedServer:
         self.max_len = max_len
         self.device = resolve_device(device, "BatchedServer")
         if params is None:
-            params = lm.init_params(prng.prng_key(seed), cfg,
-                                    device=self.device)
-        self.serving = lm.serving_params(
-            tree_map(lambda t: t.to(self.device), params), cfg)
+            self.serving = lm.init_params(prng.prng_key(seed), cfg,
+                                          device=self.device, serving=True)
+        else:
+            self.serving = lm.serving_params(
+                tree_map(lambda t: t.to(self.device), params), cfg)
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def memory(self, B: int):
+        """The cross-attention memory a `generate` of B prompts feeds, as
+        the reference's server: zero patch embeddings (vlm), the
+        encoding of zero frames (enc-dec), else None."""
+        cfg, dev = self.cfg, self.device
+        if cfg.family == "vlm":
+            return torch.zeros((B, cfg.vision_tokens, cfg.d_model),
+                               dtype=cfg.cdtype, device=dev)
+        if cfg.encoder is not None:
+            frames = torch.zeros((B, cfg.encoder.n_frames, cfg.d_model),
+                                 dtype=torch.float32, device=dev)
+            return lm.encode(self.serving, frames, cfg)
+        return None
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, gen_tokens: int,
@@ -72,14 +91,7 @@ class BatchedServer:
         logits)` over the (B, V) logits."""
         cfg, dev, params = self.cfg, self.device, self.serving
         B, P = prompts.shape
-        memory = None
-        if cfg.family == "vlm":
-            memory = torch.zeros((B, cfg.vision_tokens, cfg.d_model),
-                                 dtype=cfg.cdtype, device=dev)
-        if cfg.encoder is not None:
-            frames = torch.zeros((B, cfg.encoder.n_frames, cfg.d_model),
-                                 dtype=torch.float32, device=dev)
-            memory = lm.encode(params, frames, cfg)
+        memory = self.memory(B)
         tokens = torch.as_tensor(np.asarray(prompts, np.int64), device=dev)
         self._sync()
         t0 = time.perf_counter()

@@ -12,9 +12,15 @@ stacked on, as the reference's vmapped `init_stack` stacks them.
 ``stddev * jax.random.normal(key, shape, float32)`` cast to `dtype`, bit
 for bit the reference's, on the leaf's device: through the threefry
 kernel on the card, its plain version on the CPU, nothing on ``meta``.
+Under `drawn_as(names, dtype)` a leaf whose name is in `names` is drawn
+in that dtype instead: the kernel rounds each fp32 draw to it, so the
+leaf is the one a later cast would give, and the wider leaf never exists
+(the server's serving copy, `lm.init_params(..., serving=True)`).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import numpy as np
@@ -25,9 +31,26 @@ from repro_torch.core import prng
 from repro_torch.kernels import threefry
 
 
-def normal_init(key, shape, dtype, stddev=0.02, *, device):
-    """(*lead, *shape) for a (*lead, 2) stack of keys."""
+_DRAWN_AS = contextvars.ContextVar("drawn_as", default=None)
+
+
+@contextlib.contextmanager
+def drawn_as(names, dtype):
+    """Within it, `normal_init` draws a leaf named in `names` in `dtype`."""
+    token = _DRAWN_AS.set((frozenset(names), dtype))
+    try:
+        yield
+    finally:
+        _DRAWN_AS.reset(token)
+
+
+def normal_init(key, shape, dtype, stddev=0.02, *, device, name=None):
+    """(*lead, *shape) for a (*lead, 2) stack of keys; `name` is the
+    leaf's (see `drawn_as`)."""
     key = np.asarray(key, np.uint32)
+    drawn = _DRAWN_AS.get()
+    if drawn is not None and name in drawn[0]:
+        dtype = drawn[1]
     out = threefry.normal(key, math.prod(shape), stddev=stddev, dtype=dtype,
                           device=device)
     return out.view(*key.shape[:-1], *shape)
@@ -116,7 +139,8 @@ def scaled(x, s: float):
 # ---------------------------------------------------------------- dense
 def init_dense(key, d_in, d_out, dtype, bias=False, stddev=0.02, name="w",
                *, device):
-    p = {name: normal_init(key, (d_in, d_out), dtype, stddev, device=device)}
+    p = {name: normal_init(key, (d_in, d_out), dtype, stddev, device=device,
+                           name=name)}
     if bias:
         p[name + "_bias"] = torch.zeros((*np.shape(key)[:-1], d_out),
                                         dtype=dtype, device=device)

@@ -2,7 +2,8 @@
 
 The reference's functional API (`repro.models.lm`):
 
-  init_params(key, cfg, device=...)        -> params tree (dict of tensors)
+  init_params(key, cfg, device=..., serving=False)
+                                           -> params tree (dict of tensors)
   forward(params, tokens, cfg, ...)        -> (logits, cache, aux)
   loss_fn(params, batch, cfg)              -> (scalar, metrics)
   init_cache(cfg, batch, max_len, device)  -> decode cache tree (stacked per
@@ -34,9 +35,15 @@ that cast once, for exactly the tensors the reference casts at use
 expert weights, the embedding, the head and the learned positions); norm
 scales and biases, the router, the cross-attn gate, `mamba_A_log` and
 `mamba_D` stay as they are. The model computes the same values from
-either copy.
+either copy. `init_params(..., serving=True)` builds that copy directly
+from the key: each leaf of `SERVING_CAST` drawn in cfg.cdtype (the
+threefry kernel rounds each fp32 draw), so that the tree in
+`param_dtype` never exists; it equals `serving_params(init_params(...))`
+bit for bit.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -44,8 +51,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
 from repro_torch.models import blocks
-from repro_torch.models.common import (apply_norm, init_norm, normal_init,
-                                       scaled, softcap, split_keys)
+from repro_torch.models.common import (apply_norm, drawn_as, init_norm,
+                                       normal_init, scaled, softcap,
+                                       split_keys)
 from repro_torch.sharding import act as act_sharding
 
 # leaf names the reference casts to cfg.cdtype wherever it reads them
@@ -59,40 +67,46 @@ SERVING_CAST = frozenset({
 
 
 # ------------------------------------------------------------------ init
-def init_params(key, cfg, *, device):
+def init_params(key, cfg, *, device, serving=False):
     """The reference's parameters from the uint32[2] key `key`
     (`core.prng.prng_key(seed)` for `jax.random.PRNGKey(seed)`), bit for
     bit: the same splits, each leaf drawn on `device`. On "meta" the key
-    may be None: nothing is drawn."""
+    may be None: nothing is drawn. `serving`: their serving copy instead,
+    `serving_params` of them, each cast leaf drawn in cfg.cdtype."""
     if key is None:
         if torch.device(device).type != "meta":
             raise ValueError("init_params needs a key off the meta device")
         key = prng.prng_key(0)
     ks = split_keys(key, 6)
     kw = dict(device=device)
-    p = {
-        "embed": normal_init(ks[0], (cfg.vocab_size, cfg.d_model), cfg.pdtype,
-                             **kw),
-        "stack": blocks.init_stack(ks[1], cfg, **kw),
-        "final_norm": init_norm((cfg.d_model,), cfg.norm, cfg.pdtype, **kw),
-    }
-    if not cfg.tie_embeddings:
-        p["lm_head"] = normal_init(ks[2], (cfg.d_model, cfg.vocab_size),
-                                   cfg.pdtype, **kw)
-    if cfg.learned_pos_emb:
-        p["pos_embed"] = normal_init(ks[3], (cfg.max_decoder_len, cfg.d_model),
-                                     cfg.pdtype, **kw)
-    if cfg.encoder is not None:
-        enc_cfg = cfg.encoder_cfg()
-        p["encoder"] = {
-            "stack": blocks.init_stack(ks[4], enc_cfg, **kw),
+    with (drawn_as(SERVING_CAST, cfg.cdtype) if serving
+          else contextlib.nullcontext()):
+        p = {
+            "embed": normal_init(ks[0], (cfg.vocab_size, cfg.d_model),
+                                 cfg.pdtype, name="embed", **kw),
+            "stack": blocks.init_stack(ks[1], cfg, **kw),
             "final_norm": init_norm((cfg.d_model,), cfg.norm, cfg.pdtype,
                                     **kw),
-            "pos_embed": normal_init(ks[5],
-                                     (cfg.encoder.n_frames, cfg.d_model),
-                                     cfg.pdtype, **kw),
         }
-    return p
+        if not cfg.tie_embeddings:
+            p["lm_head"] = normal_init(ks[2], (cfg.d_model, cfg.vocab_size),
+                                       cfg.pdtype, name="lm_head", **kw)
+        if cfg.learned_pos_emb:
+            p["pos_embed"] = normal_init(
+                ks[3], (cfg.max_decoder_len, cfg.d_model), cfg.pdtype,
+                name="pos_embed", **kw)
+        if cfg.encoder is not None:
+            enc_cfg = cfg.encoder_cfg()
+            p["encoder"] = {
+                "stack": blocks.init_stack(ks[4], enc_cfg, **kw),
+                "final_norm": init_norm((cfg.d_model,), cfg.norm, cfg.pdtype,
+                                        **kw),
+                "pos_embed": normal_init(
+                    ks[5], (cfg.encoder.n_frames, cfg.d_model), cfg.pdtype,
+                    name="pos_embed", **kw),
+            }
+    # the leaves not drawn (zero biases, the dt bias) cast as they are
+    return serving_params(p, cfg) if serving else p
 
 
 def serving_params(params, cfg):

@@ -29,7 +29,7 @@ def init_mamba(key, cfg, *, device):
     p = {}
     p.update(init_dense(ks[0], D, 2 * di, cfg.pdtype, name="mamba_in", **kw))
     p["mamba_conv_w"] = normal_init(ks[1], (s.d_conv, di), cfg.pdtype, 0.1,
-                                    **kw)
+                                    name="mamba_conv_w", **kw)
     p["mamba_conv_b"] = torch.zeros((*lead, di), dtype=cfg.pdtype,
                                     device=device)
     p.update(init_dense(ks[2], di, R + 2 * N, cfg.pdtype, name="mamba_xproj",

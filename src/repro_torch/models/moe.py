@@ -55,9 +55,12 @@ def init_moe(key, cfg, *, device):
     kw = dict(device=device)
     p = {
         "router": normal_init(ks[0], (D, E), torch.float32, 0.02, **kw),
-        "moe_wg": normal_init(ks[1], (E, D, Fd), cfg.pdtype, **kw),
-        "moe_wu": normal_init(ks[2], (E, D, Fd), cfg.pdtype, **kw),
-        "moe_wd": normal_init(ks[3], (E, Fd, D), cfg.pdtype, **kw),
+        "moe_wg": normal_init(ks[1], (E, D, Fd), cfg.pdtype, name="moe_wg",
+                              **kw),
+        "moe_wu": normal_init(ks[2], (E, D, Fd), cfg.pdtype, name="moe_wu",
+                              **kw),
+        "moe_wd": normal_init(ks[3], (E, Fd, D), cfg.pdtype, name="moe_wd",
+                              **kw),
     }
     if m.shared_expert_ff:
         p["shared"] = init_mlp(ks[4], cfg, d_ff=m.shared_expert_ff,

@@ -949,6 +949,7 @@ def test_scan_kernel_keeps_the_plain_chunk_states(cuda, B, S, di, N,
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.models import attention, lm, moe  # noqa: E402
+from repro_torch.tree import flatten, tree_map  # noqa: E402
 
 
 def _kernel_layers(cfg):
@@ -1033,6 +1034,66 @@ def test_lm_serves_through_the_kernels(cuda, arch, dtype, tol,
         assert float((got - want).abs().max()) <= tol * scale
 
 
+def _cross_run(params, cfg, dev, prompts, source, feed=None, steps=3):
+    """Prefill and `steps` decode steps of reduced `cfg` on `dev` with the
+    cross-attention's memory from `source` (B, M, D) fp32 (whisper: the
+    frames its encoder reads), each step fed the greedy token of `feed`'s
+    logits (its own without). Returns the logits a step, fp32 on the
+    CPU."""
+    p = tree_map(lambda t: t.to(dev), params)
+    src = torch.from_numpy(source).to(dev)
+    memory = (lm.encode(p, src, cfg) if cfg.encoder is not None
+              else src.to(cfg.cdtype))
+    toks = torch.as_tensor(prompts.astype(np.int64), device=dev)
+    S = toks.shape[1]
+    with torch.inference_mode():
+        out, cache = lm.prefill(p, toks, cfg, S + steps, memory=memory)
+        logits = [out.float().cpu()]
+        for s in range(steps):
+            tok = (logits if feed is None else feed)[s].argmax(-1)[:, None]
+            out, cache = lm.decode_step(p, tok.to(dev), cache, cfg, S + s)
+            logits.append(out.float().cpu())
+    return logits
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-tiny"])
+def test_cross_attention_through_the_kernel(cuda, arch):
+    """The cross-attention path at reduced width in bf16, which the
+    server's zero memory hides (and llama-vision's zero `xgate`): a
+    memory from a seed (whisper: frames through the bidirectional
+    encoder), every `xgate` at 1.0. The card's prefill and 3 decode
+    steps agree with the CPU's within 3e-2 of the largest |logit| (the
+    CPU's greedy tokens fed to both),
+    flash_attention launches once a kernel-route layer a step (and once
+    an encoder layer), and the memory moves the CPU's logits by more
+    than three times that limit (4.6 and 22 times, measured on the
+    CPU)."""
+    cfg = registry.reduced(registry.get_config(arch))
+    params = lm.init_params(prng.prng_key(0), cfg, device="cpu")
+    for path, t in flatten(params):
+        if path.endswith("xgate"):
+            t.fill_(1.0)
+    rng = np.random.default_rng(1)
+    M = cfg.encoder.n_frames if cfg.encoder is not None else \
+        cfg.vision_tokens
+    source = rng.standard_normal((2, M, cfg.d_model)).astype(np.float32)
+    prompts = rng.integers(2, cfg.vocab_size, (2, 16)).astype(np.int32)
+    want = _cross_run(params, cfg, "cpu", prompts, source)
+    blank = _cross_run(params, cfg, "cpu", prompts, 0 * source, want)
+    attn, _ = _kernel_layers(cfg)
+    enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    before = fa.launches
+    got = _cross_run(params, cfg, cuda, prompts, source, want)
+    torch.cuda.synchronize()
+    assert fa.launches - before == attn * (1 + 3) + enc
+    scale = max(float(t.abs().max()) for t in want)
+    assert max(float((a - b).abs().max()) for a, b in zip(want, blank)) \
+        > 3 * 3e-2 * scale
+    for w, g in zip(want, got):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max()) <= 3e-2 * scale
+
+
 # ------------------------------------------------------- the LM training path
 @pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b",
                                   "gemma2-27b", "whisper-tiny"])
@@ -1088,7 +1149,6 @@ from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.sharding import act  # noqa: E402
-from repro_torch.tree import flatten  # noqa: E402
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b",

@@ -10,8 +10,15 @@
 * The serving copy (`lm.serving_params`) casts exactly the leaves the
   reference casts at use and gives the same logits as the parameters it
   was cast from.
-* `BatchedServer(seed=0)` on reduced qwen3-8b and falcon-mamba-7b, from
-  its seed alone, gives the reference server's greedy tokens and its
+* The serving build (`lm.init_params(..., serving=True)`, what
+  `BatchedServer(seed=...)` holds) is the serving copy of the seeded
+  parameters bit for bit, leaf for leaf with dtypes, one draw a drawn
+  leaf, each cast leaf drawn in the compute dtype; a server built so
+  gives the greedy tokens of one built from the parameters.
+* `BatchedServer(seed=0)` on six reduced archs (qwen3-8b,
+  falcon-mamba-7b, gemma2-27b, whisper-tiny, llama-3.2-vision-90b and
+  llama4-scout), from its seed alone, gives the reference server's
+  greedy tokens and its
   sampled tokens (`greedy=False, seed=1`: the same `jax.random` keys and
   Gumbel noise), with compute_dtype="float32": in the configs' own bf16
   the two frameworks round differently and, with random weights, a
@@ -35,6 +42,7 @@ from repro.launch import serve as jserve  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch.configs import base, registry  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
+from repro_torch.kernels import threefry  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
@@ -119,7 +127,56 @@ def test_serving_copy_casts_what_the_reference_casts():
                            lm.forward(serving, toks, cfg)[0])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b"])
+SERVING_BUILD_ARCHS = ["gemma2-27b", "whisper-tiny", "llama-3.2-vision-90b",
+                       "llama4-scout-17b-a16e", "jamba-1.5-large-398b"]
+
+
+def _draws(monkeypatch):
+    """The dtype of every threefry normal draw from here on."""
+    normal, dtypes = threefry.normal, []
+
+    def record(keys, n, **kw):
+        dtypes.append(kw.get("dtype", torch.float32))
+        return normal(keys, n, **kw)
+    monkeypatch.setattr(threefry, "normal", record)
+    return dtypes
+
+
+@pytest.mark.parametrize("arch", SERVING_BUILD_ARCHS)
+def test_serving_build_is_the_serving_copy(arch, monkeypatch):
+    """jamba's param_dtype is bf16 already: its two builds draw alike."""
+    cfg = registry.reduced(registry.get_config(arch))
+    key = prng.prng_key(5)
+    draws = _draws(monkeypatch)
+    want = lm.serving_params(lm.init_params(key, cfg, device="cpu"), cfg)
+    n_drawn = len(draws)
+    del draws[:]
+    got = lm.init_params(key, cfg, device="cpu", serving=True)
+    assert len(draws) == n_drawn
+    # fp32 draws only for the leaves the serving copy keeps in fp32
+    assert draws.count(torch.float32) == sum(
+        path.endswith("router") for path, _ in flatten(got))
+    assert [p for p, _ in flatten(got)] == [p for p, _ in flatten(want)]
+    for (path, g), (_, w) in zip(flatten(got), flatten(want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, path
+        assert torch.equal(g, w), path
+    assert any(t.dtype == torch.bfloat16 for _, t in flatten(got))
+
+
+def test_server_from_its_seed_serves_as_from_the_parameters():
+    cfg = registry.reduced(registry.get_config("gemma2-27b"))
+    prompts = np.random.default_rng(2).integers(
+        2, cfg.vocab_size, (2, 10)).astype(np.int32)
+    params = lm.init_params(prng.prng_key(3), cfg, device="cpu")
+    seeded = BatchedServer(cfg, max_batch=2, device="cpu", seed=3)
+    given = BatchedServer(cfg, max_batch=2, device="cpu", params=params)
+    np.testing.assert_array_equal(seeded.generate(prompts, 6)[0],
+                                  given.generate(prompts, 6)[0])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b", "gemma2-27b",
+                                  "whisper-tiny", "llama-3.2-vision-90b",
+                                  "llama4-scout-17b-a16e"])
 def test_server_gives_the_reference_servers_tokens(arch):
     jcfg = dataclasses.replace(jregistry.reduced(jregistry.get_config(arch)),
                                compute_dtype="float32")

@@ -10,7 +10,9 @@ same numpy tokens, loss masks, vision memory and audio frames:
   whisper's frames through `encode` and llama-vision's memory included);
 * three `launch.train.make_train_step` steps against the reference's
   jitted step, on one arch for each code path (THREE_STEP_ARCHS): params,
-  AdamW's m and v, `grad_norm` and `lr` each step;
+  AdamW's m and v, `grad_norm` and `lr` each step; and four at reduced
+  qwen3-8b on the card's train_lm schedule (lr 3e-4 over 4 steps:
+  warmup 1), loss by loss;
 * the optimizer pieces: bf16 moments, `compress_grads` with error
   feedback, `cosine_schedule` at every step;
 * invariances: the CE chunk (CE_CHUNK monkeypatched to 16) and remat.
@@ -186,6 +188,32 @@ def test_three_train_steps_match_reference(arch):
     check_leaves(js["m"], ts["m"], f"{arch} m")
     check_leaves(js["v"], ts["v"], f"{arch} v")
     assert int(ts["step"]) == int(js["step"]) == 3
+
+
+def test_four_steps_at_the_card_cells_schedule_match_reference():
+    """The schedule of the card's train_lm cell at reduced qwen3-8b:
+    make_train_step(cfg, AdamWConfig(lr=3e-4), 4), warmup 1 (lr 0, then
+    the full 3e-4, then the cosine), four steps against the reference's
+    jitted step on the same batches: loss, grad_norm and lr each step,
+    then params, m and v."""
+    jp, tp, jcfg, tcfg = case("qwen3-8b")
+    jstep = jax.jit(jtrain.make_train_step(jcfg, JAdamWConfig(lr=3e-4), 4))
+    tstep = ttrain.make_train_step(tcfg, AdamWConfig(lr=3e-4), 4)
+    js = jadamw_init(jp, jnp.dtype(jcfg.opt_moment_dtype))
+    ts = adamw_init(tp, getattr(torch, tcfg.opt_moment_dtype))
+    lrs = []
+    for jb, tb in batches(jcfg, tcfg, seed=2, n=4, mask=False):
+        jp, js, _, jm = jstep(jp, js, 0, jb)
+        tp, ts, _, tm = tstep(tp, ts, 0, tb)
+        for k in ("loss", "grad_norm"):
+            assert abs(float(tm[k]) - float(jm[k])) <= \
+                LOSS_RTOL * abs(float(jm[k])), k
+        assert float(tm["lr"]) == float(jm["lr"])
+        lrs.append(float(jm["lr"]))
+    assert lrs[0] == 0.0 and lrs[1] == np.float32(3e-4)
+    check_leaves(jp, tp, "qwen3-8b params", slack=STEP_RTOL * sum(lrs))
+    check_leaves(js["m"], ts["m"], "qwen3-8b m")
+    check_leaves(js["v"], ts["v"], "qwen3-8b v")
 
 
 # ------------------------------------------------------------ optimizer
