@@ -118,15 +118,17 @@ def serving_params(params, cfg):
 
 
 # ------------------------------------------------------------------ encoder
-def encode(params, frames, cfg):
+def encode(params, frames, cfg, *, remat=True):
     """frames: (B, n_frames, d_model) precomputed frame/patch embeddings
-    (stub frontend). Returns encoder memory (B, n_frames, d_model)."""
+    (stub frontend). remat: checkpoint each superblock when gradients are
+    on, as `forward`. Returns encoder memory (B, n_frames, d_model)."""
     enc_cfg = cfg.encoder_cfg()
     ep = params["encoder"]
     x = frames.to(cfg.cdtype) + ep["pos_embed"].to(cfg.cdtype)[None]
     pos = torch.arange(frames.shape[1], dtype=torch.int32,
                        device=frames.device)
-    x, _ = blocks.apply_stack(ep["stack"], x, enc_cfg, positions=pos)
+    x, _ = blocks.apply_stack(ep["stack"], x, enc_cfg, positions=pos,
+                              remat=remat)
     return apply_norm(ep["final_norm"], x, cfg.norm)
 
 

@@ -769,6 +769,12 @@ def test_flash_attention_function_gradients(cuda, B, S, H, K, hd, window,
     (4, 1, 260, 100, 64, True, 0, 0.0, torch.bfloat16),  # Sq > Sk, G 4
     (8, 1, 65, 1000, 128, True, 0, 50.0, torch.bfloat16),  # Sq < Sk, cap
     (4, 2, 63, 63, 32, False, 0, 0.0, torch.bfloat16),   # one ragged tile
+    # the train_lm phase's full-width calls, one batch row each: whisper's
+    # encoder (6 heads of 64 over its 1500 frames) and its cross-attention
+    # (448 decoder queries over them), gemma2's global layer at 6144
+    (6, 6, 1500, 1500, 64, False, 0, 0.0, torch.bfloat16),
+    (6, 6, 448, 1500, 64, False, 0, 0.0, torch.bfloat16),
+    (32, 16, 6144, 6144, 128, True, 0, 50.0, torch.bfloat16),
 ])
 def test_flash_attention_backward_kernel_edges(cuda, BH, BKV, Sq, Sk, hd,
                                                causal, window, cap, dtype):

@@ -15,9 +15,10 @@
   parameters bit for bit, leaf for leaf with dtypes, one draw a drawn
   leaf, each cast leaf drawn in the compute dtype; a server built so
   gives the greedy tokens of one built from the parameters.
-* `BatchedServer(seed=0)` on six reduced archs (qwen3-8b,
-  falcon-mamba-7b, gemma2-27b, whisper-tiny, llama-3.2-vision-90b and
-  llama4-scout), from its seed alone, gives the reference server's
+* `BatchedServer(seed=0)` on nine reduced archs (qwen3-8b,
+  falcon-mamba-7b, gemma2-27b, whisper-tiny, llama-3.2-vision-90b,
+  llama4-scout, minicpm3-4b, qwen1.5-4b and dbrx-132b: every arch the
+  card serves), from its seed alone, gives the reference server's
   greedy tokens and its
   sampled tokens (`greedy=False, seed=1`: the same `jax.random` keys and
   Gumbel noise), with compute_dtype="float32": in the configs' own bf16
@@ -176,7 +177,8 @@ def test_server_from_its_seed_serves_as_from_the_parameters():
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b", "gemma2-27b",
                                   "whisper-tiny", "llama-3.2-vision-90b",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e", "minicpm3-4b",
+                                  "qwen1.5-4b", "dbrx-132b"])
 def test_server_gives_the_reference_servers_tokens(arch):
     jcfg = dataclasses.replace(jregistry.reduced(jregistry.get_config(arch)),
                                compute_dtype="float32")

@@ -364,6 +364,52 @@ def test_kernel_path_of_every_chip_smoke_attention_case():
     assert got == want
 
 
+def _attn_long_rows():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "attn_long_rows.py"
+    spec = importlib.util.spec_from_file_location("attn_long_rows", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("BH,BKV,Sq,Sk,causal,window,cap", [
+    (4, 2, 40, 40, True, 0, 0.0),
+    (6, 2, 24, 70, True, 16, 30.0),      # right-aligned, window, softcap
+    (4, 4, 30, 50, False, 0, 0.0),       # bidirectional
+])
+def test_chip_smoke_flash_algorithm_is_the_plain_versions(BH, BKV, Sq, Sk,
+                                                          causal, window,
+                                                          cap):
+    """tools/attn_long_rows.py's `Flash`, the bf16 kernels' algorithm in
+    torch that the tool holds chip_smoke.py's train_lm superblocks
+    against, is without its roundings the plain forward and the plain
+    backward from the forward's logsumexp (fp32, 1e-5); its roundings move
+    the output and each gradient, by less than 1e-2 of their norms."""
+    cs = _attn_long_rows()
+    gen = torch.Generator().manual_seed(BH + Sq)
+    q, out_g = (torch.randn((BH, Sq, 32), generator=gen) for _ in range(2))
+    k, v = (torch.randn((BKV, Sk, 32), generator=gen) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    args = (causal, window, cap, 32 ** -0.5)
+    want, lse = ref.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    want_g = ref.flash_attention_bwd_ref(q, k, v, want, out_g, **kw,
+                                         lse=lse)
+    out, lse_f = cs.flash_fwd(q, k, v, *args, False)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse_f, lse, atol=1e-5, rtol=1e-5)
+    for g, w in zip(cs.flash_bwd(q, k, v, want, out_g, lse, *args, False),
+                    want_g):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    rounded = [cs.flash_fwd(q, k, v, *args, True)[0],
+               *cs.flash_bwd(q, k, v, want, out_g, lse, *args, True)]
+    for r, w in zip(rounded, [want, *want_g]):
+        rel = float((r - w).norm() / w.norm())
+        assert 0 < rel < 1e-2
+
+
 @pytest.mark.parametrize("BH,BKV,Sq,Sk,hd,dtype,path", [
     (32, 8, 4, 64, 128, torch.bfloat16, "decode"),     # 16 rows: the edge
     (32, 8, 5, 64, 128, torch.bfloat16, "wgmma"),      # 20 rows

@@ -68,10 +68,12 @@ LEAF_RTOL = 1e-4
 STEP_RTOL = 1e-2
 BF16_OWN, BF16_LEAF = 2 ** -7, 2 ** -6
 # the three-step parity: one arch a code path (dense attention with
-# qk-norm, the scan, enc-dec, vision cross-attention, MLA, MoE); the loss
-# and gradients hold all ten, bf16 moments are jamba's own test
+# qk-norm, the scan, enc-dec, vision cross-attention, MLA, MoE, sliding
+# window with softcaps and sandwich norms); the loss and gradients hold
+# all ten, bf16 moments are jamba's own test
 THREE_STEP_ARCHS = ("qwen3-8b", "falcon-mamba-7b", "whisper-tiny",
-                    "llama-3.2-vision-90b", "minicpm3-4b", "dbrx-132b")
+                    "llama-3.2-vision-90b", "minicpm3-4b", "dbrx-132b",
+                    "gemma2-27b")
 
 
 @pytest.fixture(autouse=True, scope="module")
