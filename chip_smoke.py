@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                # from the repository root
     python3 chip_smoke.py --only layout  # the layout phase alone (or
-                                         # lm, or train_lm)
+                                         # lm, train_lm or shard)
 
 Phases, each printing one JSON line:
 
@@ -358,6 +358,28 @@ width on 1 x MOE_TOKENS tokens; `compressed_psum` on a one-rank NCCL
 group made from a HashStore, equal to quantize-then-dequantize of its
 input.
 
+Then the `shard` phase (`python3 chip_smoke.py --only shard` runs it
+alone after the build): the LM serving path across processes, one rank a
+card, `BatchedServer(mesh=...)` under the reference's `shard_map` MoE
+dispatch, each rank holding its E/tp experts and running only them, an
+all_reduce a MoE layer (SHARD_CELLS). On four cards: SHARD_RANKS ranks
+over NCCL serve dbrx-132b and llama4-scout whole and jamba-1.5-large at
+16 of 72 layers; with fewer cards a line names the cards, the backend
+and the cases not run, and the same code runs SHARD_RANKS ranks over
+gloo on the cards there are, at depths whose ranks fit one card. At
+those depths each model is also served by a one-rank group on one card
+(tp = 1), and tp = SHARD_RANKS, fed tp = 1's tokens, must agree with it:
+every step's logits within LM_LOGIT_RTOL, the greedy tokens equal where
+the margins allow. Each case: exact flash_attention, mamba_scan and
+all_reduce launches a `generate` on every rank, each rank's build slices
+bit-equal to the plain version, each rank's peak within
+SHARD_PEAK_RATIO of its program counted on `meta`, the first kernel
+call of each kind on rank 0 against the plain versions; its line gives
+build and generate seconds, the decode step's ms and idle share, the
+all_reduce's ms a layer at the prefill and at a decode step beside its
+bytes and the NVLink bound, and `nvidia-smi topo -m`. A rank that fails
+or outlasts SHARD_TIMEOUT_S fails the phase.
+
 With `--profile`, one more card serve runs under `torch.profiler`: its
 line gives the device's busy time by kernel and its idle share of the
 wall time.
@@ -365,9 +387,11 @@ wall time.
 Then the kernels summary line (the encoder rows' launches sum the serve,
 learn, qos, control, gen and ablate phases', and the train, learn, qos,
 control and ablate phases' for the backward; the attention and scan rows
-the lm, train_lm, layout and ops phases', their backward rows the ops,
-train_lm and layout phases'; the threefry_normal row the
-rng phase's build and the lm, train_lm and layout phases' builds, the
+the lm, train_lm, layout, ops and shard phases' (by phase in
+`launches_by_phase`; the shard phase's summed over its ranks), their
+backward rows the ops, train_lm and layout phases'; the threefry_normal
+row the rng phase's build and the lm, train_lm, layout and shard phases'
+builds, the
 threefry_gumbel row the lm phase's sampled steps), the `nvidia-smi`
 line, and
 the result line `{"ok": true, "device": {...}}`. Any failure raises and
@@ -383,6 +407,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -424,7 +449,9 @@ from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
-from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.launch.mesh import (join_host_mesh,  # noqa: E402
+                                     leave, make_production_mesh,
+                                     spawn_ranks)
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.launch.train import batch_on  # noqa: E402
 from repro_torch.launch.train import make_train_step as train_step_fn  # noqa: E402,E501
@@ -2436,8 +2463,9 @@ def rng_leaf_checks(calls):
         mism, err = 0, 0.0
         for row, at, m in rng_slices(len(flat), n):
             got = leaf[row, at:at + m].cpu()
-            want = threefry.normal(flat[row], m, device="cpu", offset=at,
-                                   **kw)
+            want = threefry.normal(flat[row], m, device="cpu",
+                                   **{**kw, "offset": kw.get("offset", 0)
+                                      + at})
             mism += int((words(got) != words(want)).sum())
             err = max(err, float((got.float() - want.float()).abs().max()))
             if got0 is None:
@@ -4466,6 +4494,434 @@ def phase_layout():
     return launched
 
 
+# ------------------------------------------------------------- shard phase
+# The LM serving path across cards: `BatchedServer(mesh=...)` on the host
+# mesh (1, SHARD_RANKS), one process a rank, dp = 1, tp = SHARD_RANKS,
+# under the reference's `shard_map` MoE dispatch (`models/moe.py`): each
+# rank draws and runs only its E/tp experts, every other leaf whole, and
+# an all_reduce a MoE layer sums the ranks' outputs; the lm phase's 8
+# prompts of 128 tokens and 32 greedy tokens. (arch, layers on four
+# cards (None: the published depth), layers on one card): on four cards
+# dbrx-132b and llama4-scout whole (36.5 B and 35.4 B parameters a rank,
+# 73 and 71 GB) and jamba-1.5-large at two superblocks of its pattern,
+# 16 of 72 layers (~62 GB a rank); with fewer cards the same code runs
+# its SHARD_RANKS ranks over gloo on the cards there are, each rank's
+# experts and its own copy of every other leaf on the card, at depths
+# whose four ranks fit one 80 GB card: dbrx at 4 layers (12.7 B experts
+# and 4 x 1.58 B replicated, ~38 GB), llama4 at one superblock of 4
+# layers with its NoPE layer (~39 GB) and jamba's first 2 layers (a
+# Mamba layer with its MLP and a Mamba layer with MoE, ~39 GB: four
+# ranks of its first attention layer would need ~76 GB).
+SHARD_CELLS = (("dbrx-132b", None, 4), ("jamba-1.5-large-398b", 16, 2),
+               ("llama4-scout-17b-a16e", None, 4))
+SHARD_RANKS = 4
+# tp = 4 against tp = 1 at the one-card depths: the same seed and
+# prompts served once by SHARD_RANKS ranks and once by a one-rank group
+# on one card (all 16 experts, its all_reduce a no-op). The tp = 4 ranks
+# are fed the tp = 1 run's greedy tokens and its experts (`RouteTap`, as
+# the lm phase imposes the CPU's on the card: the ranks sum their top-k
+# partials in bf16 in another order, and at dbrx's top-4 a router near a
+# tie then picks another expert), so that every step compares the same
+# inputs. The prefill's and the first LM_CPU_STEPS decode steps' logits
+# within LM_LOGIT_RTOL of the tp = 1 run's largest |logit| (the scope
+# and the bf16 limit of the lm phase's card-vs-CPU check); every step's
+# share of that limit printed (later steps read caches that the other
+# order of sums has moved apart for longer: 1.067 of it at dbrx's step
+# 21 in the first run with the experts imposed, PERF.md); the greedy
+# tokens equal at every step wherever the tp = 1 top-2 margin exceeds
+# twice the limit (each of two logits may move by it), a step below it
+# printed with its margin.
+# Each rank's `max_memory_allocated` over its build and `generate` (less
+# what the process held before the build) within SHARD_PEAK_RATIO of the
+# rank's program counted on `meta` (`launch.dryrun.count_serve`, the
+# layout phase's ratio).
+SHARD_PEAK_RATIO = LAYOUT_PEAK_RATIO
+SHARD_TIMEOUT_S = 480      # a spawn of ranks, joined or stopped by then
+SHARD_AR_REPS = 20         # all_reduce calls timed a shape
+# NVLink 4 on an H100 SXM: 18 links of 25 GB/s each way. A ring
+# all_reduce of n bytes over r ranks sends and receives 2 (r - 1) / r n
+# bytes a rank.
+NVLINK_BYTES_PER_S = 450e9
+
+
+def shard_cfg(arch, layers):
+    """`arch`'s published config at `layers` (None: as published); a
+    depth that is not a whole number of superblocks keeps the pattern's
+    first `layers` layers."""
+    published = registry.get_config(arch)
+    if layers is None:
+        return published
+    n = len(published.block_pattern)
+    if layers % n == 0:
+        return dataclasses.replace(published, n_layers=layers)
+    return dataclasses.replace(published, n_layers=layers,
+                               block_pattern=published.block_pattern[:layers])
+
+
+def moe_layers(cfg) -> int:
+    return cfg.n_superblocks * sum(s.ffn == "moe" for s in cfg.block_pattern)
+
+
+def all_reduce_ms(mesh, rows, cfg):
+    """ms of one all_reduce of a (rows, d_model) tensor in cfg.cdtype over
+    the mesh's group (the MoE layer's psum), host clock to a synchronize
+    over SHARD_AR_REPS calls after a barrier; its bytes and the NVLink
+    bound (NCCL only: gloo goes through host memory)."""
+    import torch.distributed as dist
+    x = torch.zeros((rows, cfg.d_model), dtype=cfg.cdtype,
+                    device=mesh.device)
+    for _ in range(3):
+        dist.all_reduce(x, group=mesh.group)
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.group)
+    t0 = time.perf_counter()
+    for _ in range(SHARD_AR_REPS):
+        dist.all_reduce(x, group=mesh.group)
+    torch.cuda.synchronize()
+    ms_call = (time.perf_counter() - t0) * 1e3 / SHARD_AR_REPS
+    n_bytes = x.numel() * x.element_size()
+    r = mesh.size
+    nccl = dist.get_backend(mesh.group) == "nccl"
+    bound = 2 * (r - 1) / r * n_bytes / NVLINK_BYTES_PER_S * 1e3
+    return {"rows": rows, "bytes": n_bytes, "ms": ms_call,
+            "nvlink_bound_ms": bound if nccl and r > 1 else None}
+
+
+def shard_steps(server, prompts, forced, lead, keep):
+    """The prefill and LM_GEN decode steps of `generate` again, under the
+    server's policy, fed `forced` tokens ((LM_GEN + 1, B, 1): the tp = 1
+    run's) or, without them, their own greedy tokens. Returns (the
+    median host ms of a step over the first LM_GEN - LM_PROFILED, the
+    last LM_PROFILED steps' profile on `lead`, the (LM_GEN + 1, B, V)
+    fp32 logits on the CPU (`lead` and `keep` only: kept on the card
+    until the last step, so that no copy falls in the profile) and the
+    fed tokens)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg, p = server.cfg, server.serving
+    toks = torch.as_tensor(prompts.astype(np.int64), device=server.device)
+    times, logits_all, fed = [], [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with torch.inference_mode(), server.sharded():
+        logits, cache = lm.prefill(p, toks, cfg, LM_PROMPT + LM_GEN)
+        for t in range(LM_GEN + 1):
+            if lead and keep:
+                logits_all.append(logits.float())
+            tok = (forced[t].to(server.device) if forced is not None
+                   else logits.argmax(-1)[:, None])
+            fed.append(tok)
+            if t == LM_GEN:
+                break
+            if lead and t == LM_GEN - LM_PROFILED:
+                prof.start()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(p, tok, cache, cfg, LM_PROMPT + t)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if lead:
+            prof.stop()
+    row = {"steps": LM_PROFILED, "wall_ms": float(np.mean(
+        times[-LM_PROFILED:])), "device_busy_ms": None,
+        "device_idle_share": None, "by_kernel_ms": []}
+    if lead:
+        by_kernel = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_kernel[e.name] = by_kernel.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3 / LM_PROFILED
+        if by_kernel:      # else not measured: the profiler lost the events
+            busy = sum(by_kernel.values())
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+            row.update(device_busy_ms=busy,
+                       device_idle_share=1.0 - busy / row["wall_ms"],
+                       by_kernel_ms=[{"name": k[:80], "ms": v}
+                                     for k, v in top])
+    return (float(np.median(times[:-LM_PROFILED])), row,
+            torch.stack(logits_all).cpu() if logits_all else None,
+            torch.stack(fed).cpu())
+
+
+def tp_agreement(got, want):
+    """tp = 4's logits against tp = 1's, step by step (0: the prefill);
+    the logits of steps 0 .. LM_CPU_STEPS held to the limit, every
+    step's tokens."""
+    rows, flips = [], []
+    for t in range(len(want)):
+        w, g = want[t], got[t]
+        limit = LM_LOGIT_RTOL * float(w.abs().max())
+        err = float((g - w).abs().max())
+        top2 = w.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        same = g.argmax(-1) == w.argmax(-1)
+        sure = margin > 2 * limit
+        for b in torch.nonzero(~sure).flatten().tolist():
+            flips.append({"step": t, "row": b, "margin": float(margin[b]),
+                          "limit": limit, "same_token": bool(same[b])})
+        held = t <= LM_CPU_STEPS
+        rows.append({"step": t, "max_abs_err": err, "limit": limit,
+                     "share": err / limit, "held": held,
+                     "ok": (err <= limit or not held)
+                     and bool(same[sure].all())})
+    return {"prefill": rows[0], "worst_share_held": max(
+        r["share"] for r in rows if r["held"]),
+        "worst_share": max(r["share"] for r in rows),
+        "shares": [r["share"] for r in rows],
+        "steps_ok": all(r["ok"] for r in rows),
+        "bad_steps": [r for r in rows if not r["ok"]],
+        "below_margin": flips}
+
+
+def shard_serve(mesh, arch, layers, mode, ref_dir):
+    """One model on this rank. mode: "ref" (tp = 1: writes its logits,
+    tokens and experts to ref_dir), "agree" (tp = 4 at the same depth, fed
+    the ref's tokens and experts, rank 0 compares) or "full" (tp = 4,
+    four cards). Returns this rank's row."""
+    import torch.distributed as dist
+    cfg = shard_cfg(arch, layers)
+    lead = mesh.rank == 0
+    bad, stage = [], {}
+    clock = time.perf_counter()
+
+    def lap(name):
+        nonlocal clock
+        now = time.perf_counter()
+        stage[name] = now - clock
+        clock = now
+    gc.collect()
+    torch.cuda.empty_cache()
+    counted = dryrun.count_serve(cfg, LM_REQUESTS, LM_PROMPT, LM_GEN,
+                                 mesh=mesh).peak_live_bytes
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()   # what the process held before
+    threefry.normal_launches = 0
+    dist.barrier(group=mesh.group)
+    lap("meta_count")
+    with DrawTap(threefry, "normal") as draws:
+        server = BatchedServer(cfg, max_batch=LM_REQUESTS, seed=0,
+                               max_len=LM_PROMPT + LM_GEN, mesh=mesh)
+    torch.cuda.synchronize()
+    lap("build")
+    drawn = threefry.normal_launches
+    prompts = np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
+    attn_layers, mamba_layers = kernel_layers(cfg)
+    want = {"flash_attention": attn_layers * (1 + LM_GEN),
+            "mamba_scan": mamba_layers,
+            "all_reduce": moe_layers(cfg) * (1 + LM_GEN)}
+    fa.launches = ms.launches = act_sharding.all_reduces = 0
+    out, stats = server.generate(prompts, LM_GEN)
+    torch.cuda.synchronize()
+    lap("generate")
+    launched = {"flash_attention": fa.launches, "mamba_scan": ms.launches,
+                "all_reduce": act_sharding.all_reduces}
+    peak = torch.cuda.max_memory_allocated() - base
+    if launched != want:
+        bad.append(f"a generate launched {launched}, want {want}")
+    ratio = peak / counted
+    lo, hi = SHARD_PEAK_RATIO
+    if not lo <= ratio <= hi:
+        bad.append(f"peak {peak} over the meta count {counted}: {ratio}")
+    # the expert leaves' slices, drawn from their offsets (every other
+    # leaf's draw is the lm phase's, checked there)
+    slices, _ = rng_leaf_checks([c for c in draws.calls if "offset" in c[2]])
+    del draws
+    mismatched = sum(r["mismatches"] for r in slices)
+    moe_specs = sum(sp.ffn == "moe" for sp in cfg.block_pattern)
+    if mismatched or len(slices) != len(moe.EXPERT_LEAVES) * moe_specs:
+        bad.append(f"the build's expert slices: {len(slices)} leaves, "
+                   f"{mismatched} words differ")
+    lap("slices")
+    ref_file = pathlib.Path(ref_dir) / f"{arch}.pt"
+    forced = torch.load(ref_file) if mode == "agree" else None
+    with Recorder("mha_flash", attention_keep(LM_ATTN_SK, bidir=False)) \
+            as attn, Recorder("selective_scan_fused",
+                              lambda x, *a, **kw: "prefill"
+                              if x.shape[1] > 1 else None) as scan, \
+            RouteTap() as routes:
+        if forced is not None:
+            routes.routes, routes.impose = list(forced["routes"]), True
+        step_ms, profile_row, logits, fed = shard_steps(
+            server, prompts, None if forced is None else forced["tokens"],
+            lead, keep=mode != "full")
+    lap("steps")
+    checks = []
+    if lead:
+        checks = lm_attention_checks(attn.calls) \
+            + lm_scan_checks(scan.calls)
+        kinds = set(kernel_kinds(cfg))
+        want_checks = len(LM_ATTN_SK) * len(kinds) \
+            + (2 if mamba_layers else 0)
+        if len(checks) != want_checks:
+            bad.append(f"recorded {len(checks)} kernel calls, want "
+                       f"{want_checks}")
+        bad += [f"kernel check: {c}" for c in checks if not c["ok"]]
+    del attn, scan
+    agreement = None
+    if mode == "ref" and lead:
+        torch.save({"logits": logits, "tokens": fed,
+                    "routes": [r.cpu() for r in routes.routes],
+                    "router_min_margin": routes.margin}, ref_file)
+    if mode == "agree":
+        if routes.routes:
+            bad.append(f"{len(routes.routes)} imposed routes left unused")
+        if lead:
+            agreement = tp_agreement(logits, forced["logits"])
+            agreement["router_min_margin"] = forced["router_min_margin"]
+            if not agreement["steps_ok"]:
+                bad.append(f"tp={mesh.size} against tp=1: "
+                           f"{agreement['bad_steps']}")
+    del logits, forced
+    lap("checks")
+    reduce_ms = {"prefill": all_reduce_ms(mesh, LM_REQUESTS * LM_PROMPT,
+                                          cfg),
+                 "decode": all_reduce_ms(mesh, LM_REQUESTS, cfg)}
+    lap("all_reduce_timing")
+    weight_bytes = decode_weight_bytes(server.serving, cfg, LM_REQUESTS)
+    row = {"arch": arch, "mode": mode, "rank": mesh.rank,
+           "layers": cfg.n_layers,
+           "published_layers": registry.get_config(arch).n_layers,
+           "params": cfg.param_count(), "rank_bytes": server.serving_bytes(),
+           "build_s": stage["build"], "build_threefry_launches": drawn,
+           "build_slice_mismatches": mismatched,
+           "generate_s": stage["generate"], **stats,
+           "decode_step_ms_median": step_ms,
+           "decode_step_profile": profile_row,
+           "decode_weight_bytes": weight_bytes,
+           "decode_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "launches": launched, "want_launches": want, "peak_bytes": peak,
+           "meta_peak_bytes": counted, "peak_ratio_card_over_meta": ratio,
+           "all_reduce": reduce_ms, "kernel_checks": checks,
+           "tp_agreement": agreement, "sample": out[0, :8].tolist(),
+           "in_vocabulary": bool(((out >= 0)
+                                  & (out < cfg.vocab_size)).all()),
+           "stage_s": stage, "ok": not bad, "mismatches": bad}
+    if not row["in_vocabulary"]:
+        row["mismatches"].append("a token outside the vocabulary")
+        row["ok"] = False
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def shard_rank(mesh, runs, ref_dir):
+    """A rank's runs, one model after the other: [(arch, layers, mode)].
+    Returns its rows."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
+    rows = []
+    for arch, layers, mode in runs:
+        t0 = time.perf_counter()
+        rows.append(shard_serve(mesh, arch, layers, mode, ref_dir))
+        print(f"shard: rank {mesh.rank}/{mesh.size} {arch} {mode} "
+              f"{time.perf_counter() - t0:.1f} s {rows[-1]['stage_s']}",
+              file=sys.stderr, flush=True)
+    return rows
+
+
+def topology() -> str:
+    try:
+        return subprocess.run(["nvidia-smi", "topo", "-m"],
+                              capture_output=True, text=True,
+                              timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not read: {e}"
+
+
+def phase_shard():
+    """The shard phase (see SHARD_CELLS): the tp = 1 runs (in this
+    process, a one-rank group on card 0), then the SHARD_RANKS ranks,
+    spawned (the one-card depths and, on four cards, the full ones). A
+    rank that fails fails the phase. Returns the phase's launches, summed
+    over ranks."""
+    t0 = time.perf_counter()
+    gc.collect()            # the earlier phases' blocks, for the ranks
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    four = cards >= SHARD_RANKS
+    backend = "nccl" if four else "gloo"
+    devices = [f"cuda:{r % cards}" for r in range(SHARD_RANKS)]
+    names = [torch.cuda.get_device_name(i) for i in range(cards)]
+    not_run = [] if four else [
+        f"{arch} at {layers or registry.get_config(arch).n_layers} of "
+        f"{registry.get_config(arch).n_layers} layers over NCCL, one rank a "
+        f"card" for arch, layers, _ in SHARD_CELLS]
+    emit({"phase": "shard_cards", "cards": names, "count": cards,
+          "ranks": SHARD_RANKS, "backend": backend,
+          "rank_devices": devices, "not_run_for_want_of_cards": not_run,
+          "topology": topology(),
+          "parent_reserved_gb": torch.cuda.memory_reserved() / 1e9,
+          "free_gb": [torch.cuda.mem_get_info(i)[0] / 1e9
+                      for i in range(cards)]})
+    with tempfile.TemporaryDirectory(prefix="shard-") as ref_dir:
+        # tp = 1: a one-rank group in this process, on card 0
+        mesh = join_host_mesh(0, 1, ref_dir, backend=backend,
+                              device="cuda:0")
+        try:
+            ref = shard_rank(mesh, [(a, cut, "ref")
+                                    for a, _, cut in SHARD_CELLS], ref_dir)
+        finally:
+            leave(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs = [(a, cut, "agree") for a, _, cut in SHARD_CELLS]
+        if four:
+            runs += [(a, full, "full") for a, full, _ in SHARD_CELLS]
+        ranked = spawn_ranks(shard_rank, SHARD_RANKS, (runs, ref_dir),
+                             backend=backend, devices=devices,
+                             timeout_s=SHARD_TIMEOUT_S * (2 if four else 1))
+    rows = ref + [r for rank_rows in ranked for r in rank_rows]
+    bad = [f"{r['arch']} {r['mode']} rank {r['rank']}: {m}"
+           for r in rows for m in r["mismatches"]]
+    cases = []
+    for i, (arch, layers, mode) in enumerate(runs):
+        mine = [rank_rows[i] for rank_rows in ranked]
+        lead = mine[0]
+        cases.append({
+            "arch": arch, "mode": mode, "layers": lead["layers"],
+            "published_layers": lead["published_layers"],
+            "params": lead["params"],
+            "ranks": SHARD_RANKS, "backend": backend,
+            "build_s": [r["build_s"] for r in mine],
+            "generate_s": [r["generate_s"] for r in mine],
+            "prefill_s": lead["prefill_s"], "decode_s": lead["decode_s"],
+            "tok_per_s": lead["tok_per_s"],
+            "decode_step_ms_median": lead["decode_step_ms_median"],
+            "decode_step_profile": lead["decode_step_profile"],
+            "decode_bound_ms": lead["decode_bound_ms"],
+            "peak_gb": [r["peak_bytes"] / 1e9 for r in mine],
+            "meta_peak_gb": [r["meta_peak_bytes"] / 1e9 for r in mine],
+            "peak_ratio_card_over_meta": [r["peak_ratio_card_over_meta"]
+                                          for r in mine],
+            "rank_weight_gb": [r["rank_bytes"] / 1e9 for r in mine],
+            "expert_slice_mismatches": [r["build_slice_mismatches"]
+                                        for r in mine],
+            "rank0_stage_s": lead["stage_s"],
+            "all_reduce_a_layer": lead["all_reduce"],
+            "launches_per_rank": [r["launches"] for r in mine],
+            "want_launches_per_rank": lead["want_launches"],
+            "kernel_checks": lead["kernel_checks"],
+            "tp_agreement": lead["tp_agreement"], "sample": lead["sample"],
+            "ok": all(r["ok"] for r in mine)})
+    launched = {"flash_attention": 0, "mamba_scan": 0, "threefry_normal": 0}
+    for r in rows:
+        launched["flash_attention"] += r["launches"]["flash_attention"]
+        launched["mamba_scan"] += r["launches"]["mamba_scan"]
+        launched["threefry_normal"] += r["build_threefry_launches"]
+    emit({"phase": "shard", "cases": cases,
+          "tp1": [{k: r[k] for k in ("arch", "layers", "build_s",
+                                     "generate_s", "decode_step_ms_median",
+                                     "peak_ratio_card_over_meta", "sample")}
+                  for r in ref],
+          "launches": launched, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": nvidia_smi(), "ok": not bad, "mismatches": bad})
+    if bad:
+        raise AssertionError(f"shard phase: {bad}")
+    return launched
+
+
 # -------------------------------------------------------------- ops phase
 # (case, B, Sq, Sk, H, K, hd, causal, window, softcap, dtype, atol, rtol,
 #  the one PyTorch call that computes the same function: SDPA with
@@ -5304,7 +5760,8 @@ def conv_row(case, tree, p, out):
 
 
 # the phases `--only` runs alone (after the device and build phases)
-ALONE = {"layout": phase_layout, "lm": phase_lm, "train_lm": phase_train_lm}
+ALONE = {"layout": phase_layout, "lm": phase_lm, "train_lm": phase_train_lm,
+         "shard": phase_shard}
 
 
 def main() -> int:
@@ -5350,6 +5807,7 @@ def main() -> int:
     threefry.normal_launches = 0
     layout_launches = phase_layout()
     layout_launches["threefry_normal"] = threefry.normal_launches
+    shard_launches = phase_shard()
     summary = [{
         "name": "tree_cnn_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tree_cnn_fused.cu",
@@ -5382,13 +5840,17 @@ def main() -> int:
              "falcon-mamba-7b")):
         mine = [r for r in ops_rows if r["kernel"] == name]
         row = next(r for r in mine if r["case"] == case)
+        phases = {"ops": ops_launches, "lm": lm_launches,
+                  "train_lm": train_lm_launches, "layout": layout_launches,
+                  "shard": shard_launches}
+        by_kernel_phase = {ph: n.get(name, 0) for ph, n in phases.items()
+                           if n.get(name, 0)}
         summary.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": ops_launches[name] + lm_launches.get(name, 0)
-            + train_lm_launches.get(name, 0)
-            + layout_launches.get(name, 0),
+            "launches": sum(by_kernel_phase.values()),
+            "launches_by_phase": by_kernel_phase,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}, "case": case})
@@ -5413,7 +5875,8 @@ def main() -> int:
     by_phase = {"rng": rng_launches["threefry_normal"],
                 "lm": lm_launches["threefry_normal"],
                 "train_lm": train_lm_launches["threefry_normal"],
-                "layout": layout_launches["threefry_normal"]}
+                "layout": layout_launches["threefry_normal"],
+                "shard": shard_launches["threefry_normal"]}
     normal_row, gumbel_row = rng_rows
     summary += [{**normal_row, "launches": sum(by_phase.values()),
                  "launches_by_phase": by_phase},

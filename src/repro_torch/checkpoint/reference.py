@@ -28,6 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.models.moe import EXPERT_LEAVES
 from repro_torch.tree import children, is_node, tree_map
 
 
@@ -69,18 +70,34 @@ def params_from_numpy(tree) -> Dict[str, Dict[str, torch.Tensor]]:
     return {net: _state_dict(tree[net]) for net in ("actor", "critic")}
 
 
-def lm_params_from_numpy(tree, device) -> Dict:
+def lm_params_from_numpy(tree, device, mesh=None) -> Dict:
     """A reference LM parameter pytree (`repro.models.lm.init_params`,
     each leaf converted with `np.asarray`) -> the port's LM parameters on
     `device`, leaf for leaf, dtypes kept (a bf16 leaf arrives as numpy's
-    ml_dtypes bfloat16 and is carried across bit for bit)."""
+    ml_dtypes bfloat16 and is carried across bit for bit). With a `mesh`
+    (`launch.mesh`), each expert leaf is cut to the rank's experts [j
+    E/tp, (j+1) E/tp), j = mesh.tp_rank, as `lm.init_params(...,
+    mesh=)` draws them."""
     def leaf(a):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             t = torch.from_numpy(np.array(a.view(np.int16)))
             return t.view(torch.bfloat16).to(device)
         return torch.from_numpy(np.array(a)).to(device)
-    return tree_map(leaf, tree)
+
+    def convert(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = convert(v)
+                continue
+            if mesh is not None and k in EXPERT_LEAVES:  # (L, E, ...)
+                v = np.asarray(v)
+                El = v.shape[1] // mesh.tp_size
+                v = v[:, mesh.tp_rank * El:(mesh.tp_rank + 1) * El]
+            out[k] = leaf(v)
+        return out
+    return convert(tree)
 
 
 def agent_state_from_numpy(tree) -> Dict:

@@ -19,6 +19,12 @@ It sets no XLA flag and needs no GPU. `chips` is 1; `mesh` names the
 production layout the policy plans for (16x16, or 2x16x16 multi-pod),
 whose sharding constraints are no-ops on one card.
 
+`count_serve` counts a `BatchedServer`'s program the same way: the
+seeded serving build and a `generate`'s prefill and decode steps, on
+`meta`; with a joined mesh, the program of one rank (its own experts,
+the all_reduce moving no data on `meta`), whose `peak_live_bytes` the
+card's `max_memory_allocated` is held to (chip_smoke.py's shard phase).
+
 Results go to results/dryrun_h100/<arch>__<shape>.json, one file a
 cell, so that a sweep can be resumed. Counting costs host time a
 dispatched op: a cell whose step runs the scan's plain backward (the
@@ -102,6 +108,41 @@ def count_step(cfg, shape, layout=None, *, multi_pod=False, inputs=None):
     alias = sum(n for st, n in outs.items() if st in ins)
     return counter, {"argument": args, "output": sum(outs.values()),
                      "alias": alias}, seconds
+
+
+def count_serve(cfg, requests: int, prompt_len: int, gen: int, *,
+                mesh=None, steps: int = 2):
+    """A `BatchedServer(cfg, seed=..., mesh=mesh)` build and the prefill
+    and first `steps` decode steps of its `generate(prompts, gen)`, run
+    on `meta` under an `OpCounter` (later steps repeat the first: the
+    cache is allocated whole at the prefill). Returns the counter."""
+    import torch
+    from repro_torch.models import lm
+    B, P = requests, prompt_len
+    pol = None if mesh is None else act_sharding.ActivationPolicy(
+        moe_dispatch="shard_map", mesh=mesh)
+    with opanalysis.OpCounter() as counter:
+        params = lm.init_params(None, cfg, device="meta", serving=True,
+                                mesh=mesh)
+        tokens = torch.zeros((B, P), dtype=torch.int64, device="meta")
+        out = torch.zeros((B, gen), dtype=torch.int64, device="meta")
+        counter.track(tokens, out)
+        memory = None
+        if cfg.family == "vlm":
+            memory = torch.zeros((B, cfg.vision_tokens, cfg.d_model),
+                                 dtype=cfg.cdtype, device="meta")
+        with act_sharding.policy(pol), torch.inference_mode():
+            if cfg.encoder is not None:
+                memory = lm.encode(params, torch.zeros(
+                    (B, cfg.encoder.n_frames, cfg.d_model), device="meta"),
+                    cfg)
+            logits, cache = lm.prefill(params, tokens, cfg, max_len=P + gen,
+                                       memory=memory)
+            tok = logits.argmax(-1)[:, None]
+            for t in range(min(steps, gen)):
+                logits, cache = lm.decode_step(params, tok, cache, cfg, P + t)
+                tok = logits.argmax(-1)[:, None]
+    return counter
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,

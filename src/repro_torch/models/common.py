@@ -16,6 +16,11 @@ Under `drawn_as(names, dtype)` a leaf whose name is in `names` is drawn
 in that dtype instead: the kernel rounds each fp32 draw to it, so the
 leaf is the one a later cast would give, and the wider leaf never exists
 (the server's serving copy, `lm.init_params(..., serving=True)`).
+Under `drawn_rows(names, j, n)` a leaf whose name is in `names` is drawn
+as its j-th of n equal slices along its first own dim (the experts of a
+rank of a joined mesh): each key's elements from offset j * numel / n of
+its flat draw, bit-equal to that slice of the whole leaf, which is never
+drawn.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from repro_torch.kernels import threefry
 
 
 _DRAWN_AS = contextvars.ContextVar("drawn_as", default=None)
+_DRAWN_ROWS = contextvars.ContextVar("drawn_rows", default=None)
 
 
 @contextlib.contextmanager
@@ -44,15 +50,34 @@ def drawn_as(names, dtype):
         _DRAWN_AS.reset(token)
 
 
+@contextlib.contextmanager
+def drawn_rows(names, j: int, n: int):
+    """Within it, `normal_init` draws only the j-th of n slices along the
+    first dim of a leaf named in `names`."""
+    token = _DRAWN_ROWS.set((frozenset(names), j, n))
+    try:
+        yield
+    finally:
+        _DRAWN_ROWS.reset(token)
+
+
 def normal_init(key, shape, dtype, stddev=0.02, *, device, name=None):
     """(*lead, *shape) for a (*lead, 2) stack of keys; `name` is the
-    leaf's (see `drawn_as`)."""
+    leaf's (see `drawn_as` and `drawn_rows`)."""
     key = np.asarray(key, np.uint32)
     drawn = _DRAWN_AS.get()
     if drawn is not None and name in drawn[0]:
         dtype = drawn[1]
+    shape, kw = tuple(shape), {}
+    rows = _DRAWN_ROWS.get()
+    if rows is not None and name in rows[0]:
+        _, j, n = rows
+        if shape[0] % n:
+            raise ValueError(f"{name}: {shape[0]} rows in {n} slices")
+        shape = (shape[0] // n, *shape[1:])
+        kw["offset"] = j * math.prod(shape)
     out = threefry.normal(key, math.prod(shape), stddev=stddev, dtype=dtype,
-                          device=device)
+                          device=device, **kw)
     return out.view(*key.shape[:-1], *shape)
 
 

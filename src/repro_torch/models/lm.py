@@ -40,6 +40,13 @@ from the key: each leaf of `SERVING_CAST` drawn in cfg.cdtype (the
 threefry kernel rounds each fp32 draw), so that the tree in
 `param_dtype` never exists; it equals `serving_params(init_params(...))`
 bit for bit.
+
+With a mesh (`launch.mesh`, one rank a card), `init_params(..., mesh=)`
+draws on this rank only its E/tp experts of each expert leaf (`moe_wg`,
+`moe_wu`, `moe_wd`: `moe.EXPERT_LEAVES`), experts [j E/tp, (j+1) E/tp)
+for j = mesh.tp_rank, each slice straight from its offset in the leaf's
+threefry draw and bit-equal to that slice of the whole leaf; every other
+leaf is drawn whole, as every rank computes it (`models/moe.py`).
 """
 from __future__ import annotations
 
@@ -50,10 +57,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
-from repro_torch.models import blocks
-from repro_torch.models.common import (apply_norm, drawn_as, init_norm,
-                                       normal_init, scaled, softcap,
-                                       split_keys)
+from repro_torch.models import blocks, moe
+from repro_torch.models.common import (apply_norm, drawn_as, drawn_rows,
+                                       init_norm, normal_init, scaled,
+                                       softcap, split_keys)
 from repro_torch.sharding import act as act_sharding
 
 # leaf names the reference casts to cfg.cdtype wherever it reads them
@@ -67,12 +74,13 @@ SERVING_CAST = frozenset({
 
 
 # ------------------------------------------------------------------ init
-def init_params(key, cfg, *, device, serving=False):
+def init_params(key, cfg, *, device, serving=False, mesh=None):
     """The reference's parameters from the uint32[2] key `key`
     (`core.prng.prng_key(seed)` for `jax.random.PRNGKey(seed)`), bit for
     bit: the same splits, each leaf drawn on `device`. On "meta" the key
     may be None: nothing is drawn. `serving`: their serving copy instead,
-    `serving_params` of them, each cast leaf drawn in cfg.cdtype."""
+    `serving_params` of them, each cast leaf drawn in cfg.cdtype. `mesh`:
+    only the rank's slice of each expert leaf (the module docstring)."""
     if key is None:
         if torch.device(device).type != "meta":
             raise ValueError("init_params needs a key off the meta device")
@@ -80,7 +88,9 @@ def init_params(key, cfg, *, device, serving=False):
     ks = split_keys(key, 6)
     kw = dict(device=device)
     with (drawn_as(SERVING_CAST, cfg.cdtype) if serving
-          else contextlib.nullcontext()):
+          else contextlib.nullcontext()), \
+            (drawn_rows(moe.EXPERT_LEAVES, mesh.tp_rank, mesh.tp_size)
+             if mesh is not None else contextlib.nullcontext()):
         p = {
             "embed": normal_init(ks[0], (cfg.vocab_size, cfg.d_model),
                                  cfg.pdtype, name="embed", **kw),

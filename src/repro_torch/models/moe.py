@@ -10,11 +10,20 @@ token). The policy's `moe_dispatch` picks the reference's two others:
   * "local": the block-local dispatch. The T*K assignments are cut into
     NB = 32 blocks, each with its own capacity slice (`_dispatch_local`);
   * "shard_map": the reference's explicit per-shard dispatch over the
-    policy's dp x tp mesh, emulated on one device (`_dispatch_sharded`):
-    each dp shard's tokens meet each tp shard's E/tp experts with that
-    shard's own capacity, and the tp shards' partial outputs are summed
-    where the reference calls psum. Its numbers are those of the
-    reference's sharded program at that mesh, capacity drops included.
+    policy's dp x tp mesh (`_dispatch_sharded`): each dp shard's tokens
+    meet each tp shard's E/tp experts with that shard's own capacity, and
+    the tp shards' partial outputs are summed where the reference calls
+    psum. Its numbers are those of the reference's sharded program at
+    that mesh, capacity drops included. On a descriptor mesh (no process
+    group) it is emulated on one device, the shards one after the other.
+    On a mesh joined across processes (`launch.mesh.join_host_mesh`, one
+    rank a card, dp = 1) the expert leaves hold only this rank's E/tp
+    experts (`lm.init_params(..., mesh=)`), the rank runs only its own
+    shard, and `sharding.act.reduce_from_tp` (`torch.distributed`'s
+    all_reduce) is the psum. There a decode step (S = 1) runs the
+    reference's no-drop global dispatch restricted to the rank's experts
+    (the shard's body with a capacity of every assignment), then the same
+    all_reduce.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from repro_torch.models.common import (act_fn, apply_dense, init_dense,
 from repro_torch.sharding import act as act_sharding
 
 LOCAL_BLOCKS = 32      # the block-local dispatch's blocks (>= dp x pod)
+EXPERT_LEAVES = ("moe_wg", "moe_wu", "moe_wd")   # (E, ...) each
 
 
 # ------------------------------------------------------------------ dense MLP
@@ -84,7 +94,14 @@ def apply_moe(p, x, cfg):
 
     pol = act_sharding.current()
     mode = pol.moe_dispatch if pol is not None and S > 1 else "global"
-    if mode == "shard_map" and pol.mesh is not None:
+    if pol is not None and act_sharding.joined(pol.mesh):
+        if pol.moe_dispatch != "shard_map":
+            raise ValueError("a joined mesh splits the experts: it takes "
+                             "moe_dispatch='shard_map', not "
+                             f"{pol.moe_dispatch!r}")
+        y = _dispatch_rank(xt, eidx, gate, p, cfg, pol.mesh, act,
+                           decode=S == 1)
+    elif mode == "shard_map" and pol.mesh is not None:
         y = _dispatch_sharded(xt, eidx, gate, p, cfg, pol, act)
     else:
         xk = xt.repeat_interleave(K, dim=0).to(cdt)            # (T*K, D)
@@ -174,29 +191,61 @@ def _dispatch_sharded(xt, eidx, gate, p, cfg, pol, act):
     xk = xt.to(cdt).repeat_interleave(K, dim=0).reshape(dp, Tl * K, D)
     e_l = eidx.reshape(dp, Tl * K)
     g_l = gate.to(cdt).reshape(dp, Tl, K)
-    sidx = torch.arange(dp, device=xt.device)[:, None].expand(dp, Tl * K)
-    parts = []
+    y = None
     for j in range(tp):
-        fe = e_l - j * El                             # local expert index
-        mine = (fe >= 0) & (fe < El)
-        fe_c = fe.clamp(0, El - 1)
-        onehot = one_hot(fe_c, El) * mine[..., None]
-        pos_t = (onehot.cumsum(1) - 1).gather(2, fe_c[..., None])[..., 0]
-        keep = mine & (pos_t < Cl)
-        # a foreign or dropped assignment goes to expert row El, cut off
-        buf = torch.zeros((dp, El + 1, Cl, D), dtype=cdt, device=xt.device)
-        buf[sidx, torch.where(keep, fe_c, El),
-            torch.where(keep, pos_t, 0)] = xk
-        w = {n: p[n][j * El:(j + 1) * El] for n in ("moe_wg", "moe_wu",
-                                                   "moe_wd")}
-        yb = _experts(buf[:, :El], w, cdt, act, "s")
-        ytk = (yb[sidx, fe_c, pos_t.clamp(max=Cl - 1)]
-               * keep.to(cdt)[..., None])
-        parts.append((ytk.reshape(dp, Tl, K, D) * g_l[..., None]).sum(2))
-    y = parts[0]
-    for part in parts[1:]:                            # the psum over tp
-        y = y + part
+        w = {n: p[n][j * El:(j + 1) * El] for n in EXPERT_LEAVES}
+        part = _shard(xk, e_l, g_l, w, j * El, Cl, cdt, act)
+        y = part if y is None else y + part           # the psum over tp
     return y.reshape(T, D)
+
+
+def _dispatch_rank(xt, eidx, gate, p, cfg, mesh, act, *, decode):
+    """This rank's shard of the `shard_map` dispatch over a joined (1, tp)
+    mesh: its tokens are all T (dp = 1), its expert leaves the E/tp
+    experts from j * E/tp (j = mesh.tp_rank), its capacity the
+    reference's Cl = cf * T * K / E at a prefill, and every assignment at
+    a decode step (the reference's no-drop decode, restricted to the
+    rank's experts); then the psum, an all_reduce over the mesh's group.
+    Returns y (T, D), equal on every rank."""
+    m, cdt = cfg.moe, cfg.cdtype
+    E, K, D = m.n_experts, m.top_k, cfg.d_model
+    tp, T = mesh.tp_size, xt.shape[0]
+    El = p["moe_wg"].shape[0]
+    if mesh.size != tp or El * tp != E:
+        raise ValueError(f"a rank of a (1, {tp}) mesh holds E/tp experts: "
+                         f"mesh {mesh.shape}, {El} experts of E={E}")
+    Cl = T * K if decode else max(int(m.capacity_factor * T * K / E), 1)
+    xk = act_sharding.copy_to_tp(xt.to(cdt), mesh).repeat_interleave(
+        K, dim=0)[None]
+    g_l = act_sharding.copy_to_tp(gate.to(cdt), mesh)[None]
+    y = _shard(xk, eidx.reshape(1, T * K), g_l,
+               {n: p[n] for n in EXPERT_LEAVES}, mesh.tp_rank * El, Cl, cdt,
+               act)
+    return act_sharding.reduce_from_tp(y.reshape(T, D), mesh)
+
+
+def _shard(xk, e_l, g_l, w, e0, Cl, cdt, act):
+    """One tp shard of the `shard_map` body for each of the dp shards on
+    the leading dim: xk (dp, Tl*K, D) the assignments' inputs, e_l (dp,
+    Tl*K) their experts, g_l (dp, Tl, K) their gates, w the shard's
+    expert leaves (experts e0 .. e0 + El - 1), Cl its capacity. Returns
+    the shard's summed top-k partials (dp, Tl, D): 0 from another shard's
+    expert or a dropped assignment."""
+    dp, TK, D = xk.shape
+    El, Tl = w["moe_wg"].shape[0], g_l.shape[1]
+    fe = e_l - e0                                     # local expert index
+    mine = (fe >= 0) & (fe < El)
+    fe_c = fe.clamp(0, El - 1)
+    onehot = one_hot(fe_c, El) * mine[..., None]
+    pos_t = (onehot.cumsum(1) - 1).gather(2, fe_c[..., None])[..., 0]
+    keep = mine & (pos_t < Cl)
+    sidx = torch.arange(dp, device=xk.device)[:, None].expand(dp, TK)
+    # a foreign or dropped assignment goes to expert row El, cut off
+    buf = torch.zeros((dp, El + 1, Cl, D), dtype=cdt, device=xk.device)
+    buf[sidx, torch.where(keep, fe_c, El), torch.where(keep, pos_t, 0)] = xk
+    yb = _experts(buf[:, :El], w, cdt, act, "s")
+    ytk = yb[sidx, fe_c, pos_t.clamp(max=Cl - 1)] * keep.to(cdt)[..., None]
+    return (ytk.reshape(dp, Tl, -1, D) * g_l[..., None]).sum(2)
 
 
 def one_hot(idx, n):

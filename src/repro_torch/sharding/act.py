@@ -7,10 +7,21 @@ that the model paths read (`ce_chunk`, `remat`, `attn_remat`,
 `attn_scores_bf16`, `mla_absorb`, `moe_dispatch`): those change what the
 port computes on one card as they change what the reference computes.
 
-The port runs on one card: `constrain` returns ``x`` itself, and
-`spec_for` returns the spec the reference would constrain ``x`` to (for
-the dry run and the tests). With no policy set both are no-ops, as in the
-reference, and every model path takes its defaults.
+`constrain` returns ``x`` itself (the port places no tensor by a spec:
+dense layers stay whole on every rank), and `spec_for` returns the spec
+the reference would constrain ``x`` to (for the dry run and the tests).
+With no policy set both are no-ops, as in the reference, and every model
+path takes its defaults.
+
+The policy's `mesh` is a descriptor (`launch.mesh`), or a mesh joined
+across processes, one rank a card (`launch.mesh.join_host_mesh`): then
+the policy takes dp_size and tp_size from the mesh's shape, and the MoE
+layers run only this rank's E/tp experts and sum the ranks' outputs with
+`reduce_from_tp`, the reference's `psum` over the model axis
+(`models/moe.py`). `copy_to_tp` and `reduce_from_tp` are the pair of
+autograd Functions `shard_map` transposes into each other: the
+replicated input passes forward as it is and its cotangent is summed over
+the ranks; the psum's cotangent passes back as it is.
 
 Roles:
   "dp"  — batch-like dim  -> (pod, data) axes
@@ -20,12 +31,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.sharding.rules import P
 
 _state = threading.local()
+
+all_reduces = 0        # forward all_reduce calls over a joined mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +64,14 @@ class ActivationPolicy:
                                   #  local = per-block capacity slices
                                   #  shard_map = explicit per-shard dispatch
                                   #    + combine-sum (see models/moe.py)
-    mesh: object = None           # a `launch.mesh.Mesh` descriptor
+    mesh: object = None           # a `launch.mesh.Mesh`: a descriptor, or
+                                  # joined (dp/tp sizes from its shape)
+
+    def __post_init__(self):
+        if joined(self.mesh):
+            object.__setattr__(self, "dp_size",
+                               math.prod(self.mesh.shape[:-1]))
+            object.__setattr__(self, "tp_size", self.mesh.shape[-1])
 
     def axes_for(self, role: str):
         if role == "dp":
@@ -91,4 +114,62 @@ def spec_for(shape, roles: Dict[int, str]) -> Optional[P]:
 
 def constrain(x, roles: Dict[int, str]):
     """The reference's sharding constraint: on one card, `x` itself."""
+    return x
+
+
+# ------------------------------------------------------------- across ranks
+def joined(mesh) -> bool:
+    """Whether `mesh` is joined across processes (has a process group)."""
+    return getattr(mesh, "group", None) is not None
+
+
+def _all_reduce(x, mesh):
+    global all_reduces
+    import torch.distributed as dist
+    dist.all_reduce(x, group=mesh.group)
+    all_reduces += 1
+    return x
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _all_reduce(x.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.mesh.group)
+        return g, None
+
+
+def reduce_from_tp(x, mesh):
+    """The psum over the joined mesh's ranks: the sum of every rank's `x`
+    (in place where no gradient is taken); its backward passes the
+    cotangent through. On `meta` (a dry run) `x` itself: no data."""
+    if x.device.type == "meta":
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromTP.apply(x, mesh)
+    return _all_reduce(x, mesh)
+
+
+def copy_to_tp(x, mesh):
+    """A replicated input of per-rank work: `x` forward; its backward sums
+    the ranks' cotangents."""
+    if torch.is_grad_enabled() and x.requires_grad \
+            and x.device.type != "meta":
+        return _CopyToTP.apply(x, mesh)
     return x
