@@ -377,8 +377,19 @@ SHARD_PEAK_RATIO of its program counted on `meta`, the first kernel
 call of each kind on rank 0 against the plain versions; its line gives
 build and generate seconds, the decode step's ms and idle share, the
 all_reduce's ms a layer at the prefill and at a decode step beside its
-bytes and the NVLink bound, and `nvidia-smi topo -m`. A rank that fails
-or outlasts SHARD_TIMEOUT_S fails the phase.
+bytes and the NVLink bound, and `nvidia-smi topo -m`. In the same spawn
+of ranks the phase trains (SHARD_TRAIN_FULL, SHARD_TRAIN_CUT): the
+reference's train step under its `shard_map` policy, each rank its E/tp
+experts with their AdamW moments; four cards: dbrx-132b, jamba and
+llama4-scout at full width and cut depth on 1 x 4096 tokens; one card:
+their reduced configs on gloo ranks held bit for bit to a tp = 1 run
+(losses, norms, every leaf of each rank's part), and dbrx-132b's
+MoE layer at full width against the one-device emulation (SHARD_MOE_*).
+Each train run: exact kernel and all_reduce launches a step, losses,
+norms and a checksum of every leaf held whole equal on every rank, the
+first norm against the whole model's gathered; on four cards each
+rank's peak within SHARD_PEAK_RATIO of `launch.dryrun.count_train`. A
+rank that fails or outlasts SHARD_TIMEOUT_S fails the phase.
 
 With `--profile`, one more card serve runs under `torch.profiler`: its
 line gives the device's busy time by kernel and its idle share of the
@@ -389,12 +400,14 @@ learn, qos, control, gen and ablate phases', and the train, learn, qos,
 control and ablate phases' for the backward; the attention and scan rows
 the lm, train_lm, layout, ops and shard phases' (by phase in
 `launches_by_phase`; the shard phase's summed over its ranks), their
-backward rows the ops, train_lm and layout phases'; the threefry_normal
+backward rows the ops, train_lm, layout and shard phases'; the threefry_normal
 row the rng phase's build and the lm, train_lm, layout and shard phases'
 builds, the
 threefry_gumbel row the lm phase's sampled steps), the `nvidia-smi`
 line, and
-the result line `{"ok": true, "device": {...}}`. Any failure raises and
+the result line `{"ok": true, "device": {...}}`; before them a
+`phase_seconds` line (each phase's seconds, also printed to stderr as it
+ends). Any failure raises and
 exits non-zero (the learn, qos, control, gen and ablate phases check
 every case first and name each mismatch); without CUDA the script exits
 non-zero before printing any result.
@@ -402,6 +415,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -449,7 +463,7 @@ from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
-from repro_torch.launch.mesh import (join_host_mesh,  # noqa: E402
+from repro_torch.launch.mesh import (Mesh, join_host_mesh,  # noqa: E402
                                      leave, make_production_mesh,
                                      spawn_ranks)
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
@@ -459,6 +473,7 @@ from repro_torch.launch.train import train as train_lm  # noqa: E402
 from repro_torch.learn import (AdaptiveCurriculum, PolicyStore,  # noqa: E402
                                TrajectoryHarvester, make_online_loop)
 from repro_torch.models import attention, blocks, lm, moe  # noqa: E402
+from repro_torch.models.common import act_fn  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.optim.compress import (compressed_psum,  # noqa: E402
                                         dequantize_int8, quantize_int8)
@@ -2452,37 +2467,72 @@ def rng_slices(L, n):
     return [(0, 0, m), (L // 2, (n - m) // 2, m), (L - 1, n - m, m)]
 
 
-def rng_leaf_checks(calls):
-    """Every drawn leaf's three slices against the plain version on the
-    CPU: mismatched words a leaf (0 allowed), then the two planted
-    faults on the first leaf's first slice."""
-    rows, got0, plain0 = [], None, None
+RNG_BATCH = 32             # plain-version slices drawn in one call
+
+
+def rng_leaf_slices(calls):
+    """Every drawn leaf's three slices, read from the card now. Returns a
+    function that draws each slice with the plain version on the CPU,
+    RNG_BATCH slices a call (each key's own offset and stddev: fewer,
+    larger ops), and compares them: rows of mismatched words a leaf (0
+    allowed). The function touches only CPU tensors, so it may run in a
+    thread beside the card's work."""
+    jobs = []
     for keys, n, kw, out in calls:
         flat = keys.reshape(-1, 2)
         leaf = out.view(len(flat), n)
-        mism, err = 0, 0.0
         for row, at, m in rng_slices(len(flat), n):
-            got = leaf[row, at:at + m].cpu()
-            want = threefry.normal(flat[row], m, device="cpu",
-                                   **{**kw, "offset": kw.get("offset", 0)
-                                      + at})
-            mism += int((words(got) != words(want)).sum())
-            err = max(err, float((got.float() - want.float()).abs().max()))
-            if got0 is None:
-                got0, plain0 = words(got), words(want)
-        rows.append({"shape": list(out.shape),
-                     "dtype": str(out.dtype).replace("torch.", ""),
-                     "stddev": kw.get("stddev", 1.0), "draws": out.numel(),
-                     "checked": 3 * min(RNG_SLICE, n), "mismatches": mism,
-                     "max_abs_err": err})
-    keys, n, kw, _ = calls[0]
+            jobs.append((len(jobs) // 3, flat[row].astype(np.int64),
+                         kw.get("offset", 0) + at, m,
+                         float(np.float32(kw.get("stddev", 1.0))),
+                         leaf[row, at:at + m].cpu()))
+
+    def compare():
+        mism = [0] * len(calls)
+        err = [0.0] * len(calls)
+        by_len = {}
+        for job in jobs:
+            by_len.setdefault(job[3], []).append(job)
+        for m, group in by_len.items():
+            for a in range(0, len(group), RNG_BATCH):
+                part = group[a:a + RNG_BATCH]
+                want = ref.random_normal_ref(
+                    torch.from_numpy(np.stack([j[1] for j in part])), m,
+                    offset=torch.tensor([j[2] for j in part]),
+                    stddev=torch.tensor([j[4] for j in part],
+                                        dtype=torch.float32))
+                for j, w in zip(part, want):
+                    got = j[5]
+                    w = w.to(got.dtype)
+                    mism[j[0]] += int((words(got) != words(w)).sum())
+                    err[j[0]] = max(err[j[0]], float(
+                        (got.float() - w.float()).abs().max()))
+        return [{"shape": list(out.shape),
+                 "dtype": str(out.dtype).replace("torch.", ""),
+                 "stddev": kw.get("stddev", 1.0), "draws": out.numel(),
+                 "checked": 3 * min(RNG_SLICE, n), "mismatches": mism[i],
+                 "max_abs_err": err[i]}
+                for i, (keys, n, kw, out) in enumerate(calls)]
+    return compare
+
+
+def rng_leaf_checks(calls):
+    """Every drawn leaf's three slices against the plain version on the
+    CPU (`rng_leaf_slices`), then the two planted faults on the first
+    leaf's first slice."""
+    rows = rng_leaf_slices(calls)()
+    keys, n, kw, out = calls[0]
+    m = min(RNG_SLICE, n)
+    got0 = words(out.view(-1, n)[0, :m].cpu())
+    plain0 = words(threefry.normal(keys.reshape(-1, 2)[0], m, device="cpu",
+                                   **kw))
     off_by_ulp = got0.clone()
     off_by_ulp[len(off_by_ulp) // 3] += 1
     saved = prng._ROTATIONS
     prng._ROTATIONS = RNG_BAD_ROTATIONS
     try:
         bad_rotation = words(threefry.normal(
-            keys.reshape(-1, 2)[0], len(got0), device="cpu", **kw))
+            keys.reshape(-1, 2)[0], m, device="cpu", **kw))
     finally:
         prng._ROTATIONS = saved
     planted = {"off_by_one_ulp": int((off_by_ulp != plain0).sum()),
@@ -3223,15 +3273,14 @@ def lm_serve(arch, layers, bad):
     if build_peak_gb - serving_gb > LM_BUILD_SLACK_GB:
         bad.append(f"{arch}: the build's peak {build_peak_gb} GB, the "
                    f"serving copy {serving_gb} GB")
-    slices, _ = rng_leaf_checks(draws.calls)
+    # the plain slices on the CPU beside the untimed card work below,
+    # joined before the timed generate
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        slices_done = pool.submit(rng_leaf_slices(draws.calls))
+    finally:
+        pool.shutdown(wait=False)
     del draws
-    build_slices = {"leaves": len(slices),
-                    "dtypes": sorted({r["dtype"] for r in slices}),
-                    "checked_words": sum(r["checked"] for r in slices),
-                    "mismatched_words": sum(r["mismatches"]
-                                            for r in slices)}
-    if build_slices["mismatched_words"]:
-        bad.append(f"{arch}: the serving build's slices: {build_slices}")
     torch.cuda.reset_peak_memory_stats()
     prompts = np.random.default_rng(0).integers(
         2, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
@@ -3268,6 +3317,14 @@ def lm_serve(arch, layers, bad):
     sampled, sampled_launches = sampled_generate(server, prompts, bad)
     launched["threefry_normal"] = drawn
     launched["threefry_gumbel"] = sampled_launches
+    slices = slices_done.result()
+    build_slices = {"leaves": len(slices),
+                    "dtypes": sorted({r["dtype"] for r in slices}),
+                    "checked_words": sum(r["checked"] for r in slices),
+                    "mismatched_words": sum(r["mismatches"]
+                                            for r in slices)}
+    if build_slices["mismatched_words"]:
+        bad.append(f"{arch}: the serving build's slices: {build_slices}")
     _, stats = server.generate(prompts, LM_GEN)         # warm: the times
     step_ms, step_profile = decode_steps(server, prompts)
     weight_bytes = decode_weight_bytes(server.serving, cfg, LM_REQUESTS)
@@ -4806,19 +4863,472 @@ def shard_serve(mesh, arch, layers, mode, ref_dir):
 
 
 def shard_rank(mesh, runs, ref_dir):
-    """A rank's runs, one model after the other: [(arch, layers, mode)].
-    Returns its rows."""
+    """A rank's runs, one after the other: [(kind, arch, layers, mode)],
+    kind "serve" (`shard_serve`), "train" (`shard_train`) or "moe"
+    (`shard_moe_layer`). Returns its rows."""
     torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
     rows = []
-    for arch, layers, mode in runs:
+    for kind, arch, layers, mode in runs:
         t0 = time.perf_counter()
-        rows.append(shard_serve(mesh, arch, layers, mode, ref_dir))
-        print(f"shard: rank {mesh.rank}/{mesh.size} {arch} {mode} "
-              f"{time.perf_counter() - t0:.1f} s {rows[-1]['stage_s']}",
-              file=sys.stderr, flush=True)
+        run = {"serve": shard_serve, "train": shard_train,
+               "moe": shard_moe_layer}[kind]
+        rows.append(run(mesh, arch, layers, mode, ref_dir))
+        print(f"shard: rank {mesh.rank}/{mesh.size} {kind} {arch} {mode} "
+              f"{time.perf_counter() - t0:.1f} s "
+              f"{rows[-1].get('stage_s', '')}", file=sys.stderr, flush=True)
     return rows
+
+
+# The train runs of the shard phase: the reference's train step under its
+# `shard_map` policy on a (1, SHARD_RANKS) mesh
+# (`launch.steps.make_train_step(..., mesh=)`): every rank runs every dense
+# layer on the same batch and its E/4 experts of each MoE layer, whose
+# leaves it keeps in fp32 with their AdamW moments (`lm.init_params(...,
+# mesh=)`, drawn from the seed at their offsets); one all_reduce a MoE
+# layer in the forward and again in the remat re-forward, two in the
+# backward (the layer's input and gates), one for the global norm.
+# SHARD_TRAIN_STEPS steps from prng_key(0) on the pipeline's batches at
+# lr 3e-4 (a 3-step cosine: lr 0, then the full rate, then the cosine).
+# Four cards, NCCL: the published widths on 1 x 4096 tokens (train_4k's
+# sequence) at the deepest cut whose rank's step, counted on `meta` by
+# `launch.dryrun.count_train`, stays under ~72 GB: dbrx-132b 3 of 40
+# layers (66.2 GB; 4 would be 80.3), jamba-1.5-large its first 3 of 72
+# (Mamba layers, with an MLP, MoE, an MLP: 70.2 GB; 2 would be 62.0),
+# llama4-scout its first 2 of 48 (two chunked-attention layers with MoE
+# and a shared expert, 66.9 GB; 3 would be 85.1); the embedding and head
+# alone, with their gradients and moments, are 19.7 GB a rank at dbrx
+# and 33.1 GB at llama4. One card: the same code over SHARD_RANKS
+# gloo ranks sharing it, at the reduced configs (reduced jamba cut to
+# one superblock, 8 layers) on 4 x 256 tokens, each held to a tp = 1 run
+# of the same config on the card (no mesh: the global dispatch, every
+# expert) bit for bit at every step: the losses, the grad norms and a
+# checksum of every leaf (parameters, m, v) each rank holds, its experts'
+# slice of each expert leaf against the same slice of the tp = 1 run's.
+# At top-2 and top-1 a token's partials from the ranks meet in one
+# addition, in either order, and the other ranks add zeros; the capacity
+# a rank is the global dispatch's at dp = 1, so the drops are the same
+# (measured bit-equal: PERF.md). Every rank, every step: exact
+# kernel and all_reduce launches; the losses and grad norms, and a
+# checksum of every leaf held whole (parameters, m, v), equal on every
+# rank (all_gather); before the first step the grad norm of the whole
+# model from each rank's sums of squares of its leaves, gathered, against
+# the first step's (SHARD_NORM_RTOL: fp64 against the step's fp32
+# sums). Four cards: each rank's peak over its build and steps within
+# SHARD_PEAK_RATIO of its `count_train`; rank 0's last step under
+# torch.profiler (idle share); the all_reduce of a MoE layer's
+# (4096, d_model) at its NVLink bound.
+SHARD_TRAIN_FULL = (("dbrx-132b", 3), ("jamba-1.5-large-398b", 3),
+                    ("llama4-scout-17b-a16e", 2))
+SHARD_TRAIN_CUT = (("dbrx-132b", None), ("llama4-scout-17b-a16e", None),
+                   ("jamba-1.5-large-398b", 8))
+SHARD_TRAIN_STEPS = 3
+SHARD_TRAIN_SHAPE = {"full": (1, 4096), "cut": (4, 256)}
+SHARD_TRAIN_LR = 3e-4
+SHARD_NORM_RTOL = 1e-5
+SHARD_SUM_CHUNK = 1 << 24  # elements a checksum or fp64 sum takes at once
+
+
+def shard_train_cfg(arch, layers, mode):
+    """mode "full": the published config cut to `layers`; else the reduced
+    config, cut to `layers` (None: as reduced)."""
+    if mode == "full":
+        return shard_cfg(arch, layers)
+    cfg = registry.reduced(registry.get_config(arch))
+    return cfg if layers is None else \
+        dataclasses.replace(cfg, n_layers=layers)
+
+
+def leaf_chunks(t):
+    flat = t.detach().reshape(-1)
+    return flat.split(SHARD_SUM_CHUNK)
+
+
+def checksums(tree, part):
+    """(2, leaves) int64 on the tree's device: the words (bf16 as int16,
+    fp32 as int32) of `part(path, leaf)` (None: the leaf left out) summed
+    plainly and weighted by their place, leaf after leaf."""
+    out = []
+    for path, t in flatten(tree):
+        t = part(path, t)
+        if t is None:
+            continue
+        words = t.detach().contiguous().view(
+            torch.int16 if t.element_size() == 2 else torch.int32)
+        plain = weighted = 0
+        for at, chunk in enumerate(leaf_chunks(words)):
+            w = chunk.to(torch.int64)
+            place = torch.arange(len(chunk), device=w.device) % 1021 + at
+            plain = plain + w.sum()
+            weighted = weighted + (w * place).sum()
+        out.append(torch.stack([torch.as_tensor(plain),
+                                torch.as_tensor(weighted)]))
+    return torch.stack(out, 1)
+
+
+def sq_sums(tree):
+    """Each leaf's sum of squares in fp64 (sorted-leaf order), (leaves,)."""
+    return torch.stack([sum(c.double().square().sum() for c in leaf_chunks(t))
+                        for _, t in flatten(tree)])
+
+
+def held_whole(path) -> bool:
+    return path.rsplit("/", 1)[-1] not in act_sharding.EXPERT_LEAVES
+
+
+def whole_only(path, t):
+    """A `checksums` part: the leaves every rank holds whole."""
+    return t if held_whole(path) else None
+
+
+def rank_part(rank, ranks):
+    """A `checksums` part: what rank `rank` of `ranks` holds of each leaf,
+    its experts of an expert leaf (L, E, ...), every other leaf whole."""
+    def part(path, t):
+        if held_whole(path):
+            return t
+        El = t.shape[1] // ranks
+        return t[:, rank * El:(rank + 1) * El]
+    return part
+
+
+def gathered(mesh, t):
+    """Every rank's `t`, stacked (rank order); `t` alone without a mesh."""
+    import torch.distributed as dist
+    if mesh is None:
+        return t[None]
+    got = [torch.empty_like(t) for _ in range(mesh.size)]
+    dist.all_gather(got, t.contiguous(), group=mesh.group)
+    return torch.stack(got)
+
+
+def whole_grad_norm(params, batch, cfg, mesh):
+    """The grad norm of the whole model at `params` on `batch`: each
+    rank's gradient leaves' fp64 sums of squares, gathered; an expert
+    leaf's summed over the ranks, every other leaf's taken from rank 0
+    (it is the whole leaf's on every rank). Returns (norm, whether every
+    rank's leaves held whole had equal sums)."""
+    with act_sharding.across(mesh):
+        _, grads = steps_lib.loss_and_grads(params, batch, cfg)
+    sums = sq_sums(grads)
+    del grads
+    every = gathered(mesh, sums)
+    paths = [p for p, _ in flatten(params)]
+    split = torch.tensor([not held_whole(p) for p in paths],
+                         device=every.device)
+    total = torch.where(split, every.sum(0), every[0]).sum()
+    same = bool((every[:, ~split] == every[0, ~split]).all())
+    return float(total.sqrt()), same
+
+
+def driver_step(step_fn):
+    """A `launch.steps` train step in the driver's signature, (params,
+    opt, err, batch) -> (params, opt, err, metrics), for `profiled_step`."""
+    def run(params, opt, err, batch):
+        params, opt, metrics = step_fn(params, opt, batch)
+        return params, opt, err, metrics
+    return run
+
+
+def shard_train(mesh, arch, layers, mode, ref_dir):
+    """One train run on this rank. mode: "ref" (tp = 1 in the parent, no
+    mesh, on card 0: writes its losses and norms to ref_dir), "agree"
+    (tp = 4 at the reduced configs, rank 0 compares with the ref) or
+    "full" (tp = 4 on four cards). Returns this rank's row."""
+    cfg = shard_train_cfg(arch, layers, mode)
+    B, S = SHARD_TRAIN_SHAPE["full" if mode == "full" else "cut"]
+    device = mesh.device if mesh is not None else "cuda:0"
+    lead = mesh is None or mesh.rank == 0
+    bad, stage = [], {}
+    clock = time.perf_counter()
+
+    def lap(name):
+        nonlocal clock
+        now = time.perf_counter()
+        stage[name] = now - clock
+        clock = now
+    gc.collect()
+    torch.cuda.empty_cache()
+    counted = dryrun.count_train(cfg, B, S, mesh=mesh).peak_live_bytes
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    threefry.normal_launches = 0
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier(group=mesh.group)
+    lap("meta_count")
+    params = lm.init_params(prng.prng_key(0), cfg, device=device, mesh=mesh)
+    opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
+    torch.cuda.synchronize()
+    drawn = threefry.normal_launches
+    lap("build")
+    pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                               global_batch=B, seed=0, n_logical_shards=B,
+                               shard_range=(0, B))
+    batches = [{"tokens": torch.as_tensor(pipe.batch_at(s)["tokens"],
+                                          device=device)}
+               for s in range(SHARD_TRAIN_STEPS)]
+    norm_whole, norms_alike = whole_grad_norm(params, batches[0], cfg, mesh)
+    lap("whole_norm")
+    step_fn = steps_lib.make_train_step(
+        cfg, AdamWConfig(lr=SHARD_TRAIN_LR), SHARD_TRAIN_STEPS, mesh=mesh)
+    attn_layers, mamba_layers = kernel_layers(cfg)
+    M = moe_layers(cfg) if mesh is not None else 0
+    want = {"flash_attention": 2 * attn_layers,
+            "mamba_scan": 2 * mamba_layers,
+            "flash_attention_bwd": 2 * attn_layers,
+            "mamba_scan_bwd": 2 * mamba_layers,
+            "all_reduce": 2 * M, "cotangent_all_reduce": 2 * M,
+            "stat_all_reduce": int(mesh is not None)}
+    losses, norms, lrs, times, per_step, profile = [], [], [], [], [], None
+    alike, held = [], []
+    for s, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        fa.launches = ms.launches = fa.bwd_launches = ms.bwd_launches = 0
+        act_sharding.all_reduces = act_sharding.cotangent_all_reduces = 0
+        act_sharding.stat_all_reduces = 0
+        if mode == "full" and lead and s == len(batches) - 1:
+            profile, metrics = profiled_step(driver_step(step_fn),
+                                             params, opt, batch)
+            params, opt = profile.pop("state")
+        else:
+            t1 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        per_step.append({**counts_lm(), **bwd_counts(),
+                         "all_reduce": act_sharding.all_reduces,
+                         "cotangent_all_reduce":
+                         act_sharding.cotangent_all_reduces,
+                         "stat_all_reduce": act_sharding.stat_all_reduces})
+        scalars = torch.stack([metrics["loss"].float(),
+                               metrics["grad_norm"].float()])
+        losses.append(float(scalars[0]))
+        norms.append(float(scalars[1]))
+        lrs.append(float(metrics["lr"]))
+        trees = (params, opt["m"], opt["v"])
+        if mode != "full":     # (ranks, 2, leaves): each tp = 4 rank's part
+            parts = ([rank_part(r, SHARD_RANKS) for r in range(SHARD_RANKS)]
+                     if mesh is None else [rank_part(0, 1)])
+            held.append(torch.stack([torch.cat(
+                [checksums(t, part) for t in trees], 1)
+                for part in parts]).cpu())
+        if mesh is not None:
+            sums = torch.cat([checksums(t, whole_only) for t in trees], 1)
+            every = gathered(mesh, sums)
+            scal = gathered(mesh, scalars)
+            alike.append({"step": s,
+                          "leaves_held_whole": bool((every == sums).all()),
+                          "loss_and_norm": bool((scal == scalars).all())})
+    peak = torch.cuda.max_memory_allocated() - base
+    lap("steps")
+    if any(p != want for p in per_step):
+        bad.append(f"a step launched {per_step}, want {want}")
+    if not all(np.isfinite(losses)):
+        bad.append(f"a loss is not finite: {losses}")
+    if not all(a["leaves_held_whole"] and a["loss_and_norm"]
+               for a in alike):
+        bad.append(f"the ranks differ: {alike}")
+    if not norms_alike:
+        bad.append("the ranks' gradients of the leaves held whole differ")
+    norm_err = abs(norms[0] - norm_whole) / norm_whole
+    if norm_err > SHARD_NORM_RTOL:
+        bad.append(f"the first step's grad norm {norms[0]} against the "
+                   f"whole model's {norm_whole}: {norm_err}")
+    ratio = peak / counted
+    lo, hi = SHARD_PEAK_RATIO
+    if mode == "full" and not lo <= ratio <= hi:
+        bad.append(f"peak {peak} over the meta count {counted}: {ratio}")
+    ref_file = pathlib.Path(ref_dir) / f"{arch}.train.pt"
+    agreement = None
+    if mode == "ref":
+        torch.save({"losses": losses, "norms": norms, "held": held},
+                   ref_file)
+    elif mode == "agree":
+        want_run = torch.load(ref_file)
+        agreement = {
+            "losses_tp1": want_run["losses"], "norms_tp1": want_run["norms"],
+            "loss_rel": [abs(a - b) / abs(b) for a, b in
+                         zip(losses, want_run["losses"])],
+            "norm_rel": [abs(a - b) / abs(b) for a, b in
+                         zip(norms, want_run["norms"])],
+            # per step: the leaves (of parameters, m, v) whose checksums
+            # differ from the tp = 1 run's part for this rank
+            "leaves_unequal": [
+                int((mine[0] != want[mesh.rank]).any(0).sum())
+                for mine, want in zip(held, want_run["held"])],
+            "leaves": int(held[0].shape[-1])}
+        agreement["bit_equal"] = (losses == want_run["losses"]
+                                  and norms == want_run["norms"]
+                                  and not any(agreement["leaves_unequal"]))
+        if not agreement["bit_equal"]:
+            bad.append(f"tp={mesh.size} rank {mesh.rank} against tp=1: "
+                       f"{agreement}")
+    reduce_ms = None
+    if mode == "full":
+        reduce_ms = all_reduce_ms(mesh, B * S, cfg)
+    lap("checks")
+    step_s = float(np.median(times[1:])) if len(times) > 1 else times[0]
+    row = {"arch": arch, "mode": mode, "rank": 0 if mesh is None
+           else mesh.rank, "layers": cfg.n_layers,
+           "published_layers": registry.get_config(arch).n_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "rank_param_bytes": sum(t.numel() * t.element_size()
+                                   for _, t in flatten(params)),
+           "batch": B, "seq": S, "lr": lrs, "losses": losses,
+           "grad_norms": norms, "grad_norm_whole_model": norm_whole,
+           "grad_norm_rel_err": norm_err, "ranks_alike": alike,
+           "step_s": times, "step_ms_median": step_s * 1e3,
+           "tokens_per_s": B * S / step_s, "profiled_step": profile,
+           "launches_per_step": per_step, "want_launches_per_step": want,
+           "build_threefry_launches": drawn, "peak_bytes": peak,
+           "meta_peak_bytes": counted, "peak_ratio_card_over_meta": ratio,
+           "all_reduce": reduce_ms, "tp_agreement": agreement,
+           "stage_s": stage, "ok": not bad, "mismatches": bad}
+    del params, opt, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+# dbrx-132b's MoE layer at full width through the dispatch across ranks,
+# forward and backward: T = 4096 tokens of d_model 6144, 16 experts of
+# 10752 at top-4, each rank its 4 experts (fp32 leaves, ~10 GB a rank
+# with their gradients and the step's buffers), against the one-device
+# emulation of the same `shard_map` at a (1, 4) descriptor mesh
+# (`moe._dispatch_sharded`, ~38 GB), run first in the parent, on the same
+# seeded inputs, gates and experts (each expert drawn alone from its own
+# seed, so that a rank draws only its own). Held: y, the gates' and each
+# rank's experts' gradients within SHARD_MOE_TOL of their largest |value|
+# (the experts' through a strided sample and each expert's sum of
+# squares); the input's gradient within SHARD_MOE_TOL too, its distance
+# printed: the ranks sum a token's K cotangents before the ranks, the
+# emulation (as the reference's transposed program) over the ranks first,
+# and in bf16 the two orders round differently at top-4.
+SHARD_MOE_ARCH = "dbrx-132b"
+SHARD_MOE_T = 4096
+SHARD_MOE_SEED = 11
+SHARD_MOE_TOL = 1e-2
+SHARD_MOE_SAMPLE = (slice(None), slice(None, None, 97), slice(None, None, 89))
+
+
+def moe_expert(e, name, cfg, device):
+    """Expert e's leaf `name` (0.02 x a unit normal, cfg's param dtype),
+    from its own seed."""
+    D, Fd = cfg.d_model, cfg.moe_d_ff
+    shape = (Fd, D) if name == "moe_wd" else (D, Fd)
+    g = torch.Generator(device=device).manual_seed(
+        SHARD_MOE_SEED + 1 + 3 * e + moe.EXPERT_LEAVES.index(name))
+    return (0.02 * torch.randn(shape, generator=g, device=device)
+            ).to(cfg.pdtype)
+
+
+def moe_experts(cfg, lo, hi, device):
+    """Experts lo .. hi - 1 of each expert leaf, leaves needing grads."""
+    return {n: torch.stack([moe_expert(e, n, cfg, device)
+                            for e in range(lo, hi)]).requires_grad_(True)
+            for n in moe.EXPERT_LEAVES}
+
+
+def moe_grads(x, gate, w):
+    """The gradients to hold: x's, the gates', and of each expert leaf
+    its strided sample and each expert's fp64 sum of squares."""
+    out = {"dx": x.grad.float().cpu(), "dgate": gate.grad.float().cpu()}
+    for n in moe.EXPERT_LEAVES:
+        g = w[n].grad
+        out[f"{n}/sample"] = g[SHARD_MOE_SAMPLE].float().cpu()
+        out[f"{n}/sq"] = torch.stack([e.double().square().sum()
+                                      for e in g]).cpu()
+    return out
+
+
+def shard_moe_emulated(ref_dir):
+    """The parent's half, on card 0: the seeded inputs, gates and
+    cotangent, written to ref_dir, then the emulation's y and gradients,
+    written there."""
+    device = "cuda:0"
+    cfg = registry.get_config(SHARD_MOE_ARCH)
+    E, K, D, cdt = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model, cfg.cdtype
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(SHARD_MOE_SEED)
+    x = torch.randn((SHARD_MOE_T, D), generator=g, device=device).to(cdt)
+    router = 0.02 * torch.randn((D, E), generator=g, device=device)
+    gate, eidx = moe.route(torch.softmax(x.float() @ router, -1), K)
+    cot = torch.randn((SHARD_MOE_T, D), generator=g, device=device).to(cdt)
+    inputs = {"x": x, "gate": gate, "eidx": eidx, "cot": cot}
+    torch.save({k: v.cpu() for k, v in inputs.items()},
+               pathlib.Path(ref_dir) / "moe.inputs.pt")
+    x, gate = x.requires_grad_(True), gate.requires_grad_(True)
+    w = moe_experts(cfg, 0, E, device)
+    pol = act_sharding.ActivationPolicy(
+        moe_dispatch="shard_map", tp_size=SHARD_RANKS,
+        mesh=Mesh(("data", "model"), (1, SHARD_RANKS)))
+    torch.cuda.reset_peak_memory_stats()
+    y = moe._dispatch_sharded(x, eidx, gate, w, cfg, pol, act_fn(cfg.act))
+    y.backward(cot)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"y": y.detach().float().cpu(), **moe_grads(x, gate, w)}
+    torch.save(out, pathlib.Path(ref_dir) / "moe.emulated.pt")
+    del x, gate, w, y, out, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"peak_gb": peak / 1e9, "seconds": time.perf_counter() - t0}
+
+
+def shard_moe_layer(mesh, arch, layers, mode, ref_dir):
+    """A rank's half (arch SHARD_MOE_ARCH at its published width; layers
+    and mode unused): its 4 experts from their seeds, the parent's
+    inputs, `moe._dispatch_rank` forward and backward, held to the
+    emulation."""
+    cfg = registry.get_config(arch)
+    El = cfg.moe.n_experts // mesh.size
+    j = mesh.tp_rank
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    d = pathlib.Path(ref_dir)
+    inputs = {k: v.to(mesh.device)
+              for k, v in torch.load(d / "moe.inputs.pt").items()}
+    x = inputs["x"].requires_grad_(True)
+    gate = inputs["gate"].requires_grad_(True)
+    w = moe_experts(cfg, j * El, (j + 1) * El, mesh.device)
+    torch.cuda.reset_peak_memory_stats()
+    act_sharding.all_reduces = act_sharding.cotangent_all_reduces = 0
+    y = moe._dispatch_rank(x, inputs["eidx"], gate, w, cfg, mesh,
+                           act_fn(cfg.act), decode=False)
+    y.backward(inputs["cot"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    reduces = [act_sharding.all_reduces, act_sharding.cotangent_all_reduces]
+    got = {"y": y.detach().float().cpu(), **moe_grads(x, gate, w)}
+    del x, gate, w, y, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = torch.load(d / "moe.emulated.pt")
+    errs = {}
+    for k, g in got.items():
+        ref_k = want[k]
+        if "/" in k:                       # an expert leaf: this rank's
+            ref_k = ref_k[j * El:(j + 1) * El]
+        top = float(ref_k.abs().max())
+        err = float((g.double() - ref_k.double()).abs().max())
+        errs[k] = {"max_abs_err": err, "top": top, "share": err / max(
+            top, 1e-30) / SHARD_MOE_TOL, "bit_equal": bool(torch.equal(
+                g, ref_k.to(g.dtype)))}
+    bad = [f"{k}: {e}" for k, e in errs.items() if e["share"] > 1]
+    if reduces != [1, 2]:
+        bad.append(f"all_reduces forward, backward {reduces}, want [1, 2]")
+    return {"arch": arch, "mode": "moe", "rank": mesh.rank,
+            "tokens": SHARD_MOE_T, "d_model": cfg.d_model,
+            "experts": cfg.moe.n_experts, "rank_experts": El,
+            "top_k": cfg.moe.top_k, "d_ff": cfg.moe_d_ff, "tol": SHARD_MOE_TOL,
+            "errors": errs, "peak_gb": peak / 1e9, "all_reduces": reduces,
+            "seconds": time.perf_counter() - t0, "ok": not bad,
+            "mismatches": bad}
 
 
 def topology() -> str:
@@ -4831,11 +5341,12 @@ def topology() -> str:
 
 
 def phase_shard():
-    """The shard phase (see SHARD_CELLS): the tp = 1 runs (in this
-    process, a one-rank group on card 0), then the SHARD_RANKS ranks,
-    spawned (the one-card depths and, on four cards, the full ones). A
-    rank that fails fails the phase. Returns the phase's launches, summed
-    over ranks."""
+    """The shard phase (see SHARD_CELLS, SHARD_TRAIN_FULL and SHARD_MOE_*):
+    the tp = 1 runs (in this process: the serving ones in a one-rank group
+    on card 0, the train ones without a mesh) and the MoE layer's
+    emulation, then the SHARD_RANKS ranks, spawned once (the one-card
+    runs and, on four cards, the full ones). A rank that fails fails the
+    phase. Returns the phase's launches, summed over ranks."""
     t0 = time.perf_counter()
     gc.collect()            # the earlier phases' blocks, for the ranks
     torch.cuda.empty_cache()
@@ -4845,9 +5356,12 @@ def phase_shard():
     devices = [f"cuda:{r % cards}" for r in range(SHARD_RANKS)]
     names = [torch.cuda.get_device_name(i) for i in range(cards)]
     not_run = [] if four else [
-        f"{arch} at {layers or registry.get_config(arch).n_layers} of "
-        f"{registry.get_config(arch).n_layers} layers over NCCL, one rank a "
-        f"card" for arch, layers, _ in SHARD_CELLS]
+        f"{kind} {arch} at {layers or registry.get_config(arch).n_layers} "
+        f"of {registry.get_config(arch).n_layers} layers over NCCL, one rank "
+        f"a card" for kind, cells in (("serve", [(a, f) for a, f, _ in
+                                                 SHARD_CELLS]),
+                                      ("train", SHARD_TRAIN_FULL))
+        for arch, layers in cells]
     emit({"phase": "shard_cards", "cards": names, "count": cards,
           "ranks": SHARD_RANKS, "backend": backend,
           "rank_devices": devices, "not_run_for_want_of_cards": not_run,
@@ -4860,25 +5374,59 @@ def phase_shard():
         mesh = join_host_mesh(0, 1, ref_dir, backend=backend,
                               device="cuda:0")
         try:
-            ref = shard_rank(mesh, [(a, cut, "ref")
+            ref = shard_rank(mesh, [("serve", a, cut, "ref")
                                     for a, _, cut in SHARD_CELLS], ref_dir)
         finally:
             leave(mesh)
+        ref += [shard_train(None, a, cut, "ref", ref_dir)
+                for a, cut in SHARD_TRAIN_CUT]
+        emulated = shard_moe_emulated(ref_dir)
         gc.collect()
         torch.cuda.empty_cache()
-        runs = [(a, cut, "agree") for a, _, cut in SHARD_CELLS]
+        runs = [("serve", a, cut, "agree") for a, _, cut in SHARD_CELLS]
+        runs += [("train", a, cut, "agree") for a, cut in SHARD_TRAIN_CUT]
+        runs += [("moe", SHARD_MOE_ARCH, None, "moe")]
         if four:
-            runs += [(a, full, "full") for a, full, _ in SHARD_CELLS]
+            runs += [("serve", a, full, "full") for a, full, _ in SHARD_CELLS]
+            runs += [("train", a, full, "full") for a, full in
+                     SHARD_TRAIN_FULL]
         ranked = spawn_ranks(shard_rank, SHARD_RANKS, (runs, ref_dir),
                              backend=backend, devices=devices,
-                             timeout_s=SHARD_TIMEOUT_S * (2 if four else 1))
+                             timeout_s=SHARD_TIMEOUT_S * (3 if four else 1))
     rows = ref + [r for rank_rows in ranked for r in rank_rows]
     bad = [f"{r['arch']} {r['mode']} rank {r['rank']}: {m}"
            for r in rows for m in r["mismatches"]]
-    cases = []
-    for i, (arch, layers, mode) in enumerate(runs):
+    cases, train, moe_rows = [], [], []
+    for i, (kind, arch, layers, mode) in enumerate(runs):
         mine = [rank_rows[i] for rank_rows in ranked]
         lead = mine[0]
+        if kind == "moe":
+            moe_rows = mine
+            continue
+        if kind == "train":
+            train.append({
+                k: lead[k] for k in (
+                    "arch", "mode", "layers", "published_layers", "d_model",
+                    "params", "batch", "seq", "lr", "losses", "grad_norms",
+                    "grad_norm_whole_model", "grad_norm_rel_err",
+                    "ranks_alike", "step_s", "step_ms_median",
+                    "tokens_per_s", "profiled_step", "all_reduce",
+                    "tp_agreement", "want_launches_per_step")})
+            train[-1].update({
+                "ranks": SHARD_RANKS, "backend": backend,
+                "rank_param_gb": [r["rank_param_bytes"] / 1e9 for r in mine],
+                "peak_gb": [r["peak_bytes"] / 1e9 for r in mine],
+                "meta_peak_gb": [r["meta_peak_bytes"] / 1e9 for r in mine],
+                "peak_ratio_card_over_meta": [
+                    r["peak_ratio_card_over_meta"] for r in mine],
+                "launches_per_step_per_rank": [r["launches_per_step"]
+                                               for r in mine],
+                "leaves_unequal_tp1_per_rank": [
+                    r["tp_agreement"]["leaves_unequal"]
+                    if r["tp_agreement"] else None for r in mine],
+                "rank0_stage_s": lead["stage_s"],
+                "ok": all(r["ok"] for r in mine)})
+            continue
         cases.append({
             "arch": arch, "mode": mode, "layers": lead["layers"],
             "published_layers": lead["published_layers"],
@@ -4905,16 +5453,29 @@ def phase_shard():
             "kernel_checks": lead["kernel_checks"],
             "tp_agreement": lead["tp_agreement"], "sample": lead["sample"],
             "ok": all(r["ok"] for r in mine)})
-    launched = {"flash_attention": 0, "mamba_scan": 0, "threefry_normal": 0}
+    launched = {"flash_attention": 0, "mamba_scan": 0,
+                "flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+                "threefry_normal": 0}
     for r in rows:
-        launched["flash_attention"] += r["launches"]["flash_attention"]
-        launched["mamba_scan"] += r["launches"]["mamba_scan"]
+        if r["mode"] == "moe":
+            continue
+        if "launches_per_step" in r:            # a train run
+            for k in ("flash_attention", "mamba_scan",
+                      "flash_attention_bwd", "mamba_scan_bwd"):
+                launched[k] += sum(p[k] for p in r["launches_per_step"])
+        else:
+            launched["flash_attention"] += r["launches"]["flash_attention"]
+            launched["mamba_scan"] += r["launches"]["mamba_scan"]
         launched["threefry_normal"] += r["build_threefry_launches"]
-    emit({"phase": "shard", "cases": cases,
+    emit({"phase": "shard", "cases": cases, "train": train,
+          "moe_layer": {"emulated": emulated, "ranks": moe_rows},
           "tp1": [{k: r[k] for k in ("arch", "layers", "build_s",
                                      "generate_s", "decode_step_ms_median",
                                      "peak_ratio_card_over_meta", "sample")}
-                  for r in ref],
+                  for r in ref if "generate_s" in r],
+          "tp1_train": [{k: r[k] for k in ("arch", "layers", "losses",
+                                           "grad_norms", "step_ms_median")}
+                        for r in ref if "losses" in r],
           "launches": launched, "seconds": time.perf_counter() - t0,
           "nvidia_smi": nvidia_smi(), "ok": not bad, "mismatches": bad})
     if bad:
@@ -5778,36 +6339,55 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 as the reference
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device()
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        """Run one phase, print and keep its seconds."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.1f} s", file=sys.stderr,
+              flush=True)
+        return out
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
     if args.only:
         for phase in args.only:
-            ALONE[phase]()
+            timed(phase, ALONE[phase])
+        emit({"phase_seconds": seconds})
         return 0
     db, wl, meta = deployment()
     tree = load_reference_checkpoint(CKPT)
-    worst, timing, bwd_worst, bwd_timing = phase_kernels(db, wl, meta, tree)
-    launches = phase_serve(db, wl, meta, params_from_numpy(tree))
-    train_launches, trained, trajs = phase_train(db, wl, meta, tree)
-    learn_launches, state, replay, ref_replay = phase_learn(db, wl, meta,
-                                                            tree)
-    qos_launches = phase_qos(db, wl, meta, state, replay, ref_replay)
-    control_launches = phase_control(wl, meta, state)
-    gen_launches = phase_gen()
-    ablate_launches, ablate_profiled = phase_ablate()
+    worst, timing, bwd_worst, bwd_timing = timed(
+        "kernels", phase_kernels, db, wl, meta, tree)
+    launches = timed("serve", phase_serve, db, wl, meta,
+                     params_from_numpy(tree))
+    train_launches, trained, trajs = timed("train", phase_train, db, wl,
+                                           meta, tree)
+    learn_launches, state, replay, ref_replay = timed(
+        "learn", phase_learn, db, wl, meta, tree)
+    qos_launches = timed("qos", phase_qos, db, wl, meta, state, replay,
+                         ref_replay)
+    control_launches = timed("control", phase_control, wl, meta, state)
+    gen_launches = timed("gen", phase_gen)
+    ablate_launches, ablate_profiled = timed("ablate", phase_ablate)
     if args.profile:
-        phase_profile(db, wl, meta, params_from_numpy(tree))
-    ops_launches, ops_rows, bwd_rows = phase_ops(tree, db, wl, meta)
-    phase_late_profiles(bwd_timing, trained, trajs, ablate_profiled)
-    rng_launches, rng_rows = phase_rng()
-    lm_launches = phase_lm()
+        timed("profile", phase_profile, db, wl, meta,
+              params_from_numpy(tree))
+    ops_launches, ops_rows, bwd_rows = timed("ops", phase_ops, tree, db, wl,
+                                             meta)
+    timed("late_profiles", phase_late_profiles, bwd_timing, trained, trajs,
+          ablate_profiled)
+    rng_launches, rng_rows = timed("rng", phase_rng)
+    lm_launches = timed("lm", phase_lm)
     threefry.normal_launches = 0          # the builds of the next phases
-    train_lm_launches = phase_train_lm()
+    train_lm_launches = timed("train_lm", phase_train_lm)
     train_lm_launches["threefry_normal"] = threefry.normal_launches
     threefry.normal_launches = 0
-    layout_launches = phase_layout()
+    layout_launches = timed("layout", phase_layout)
     layout_launches["threefry_normal"] = threefry.normal_launches
-    shard_launches = phase_shard()
+    shard_launches = timed("shard", phase_shard)
+    emit({"phase_seconds": seconds})
     summary = [{
         "name": "tree_cnn_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tree_cnn_fused.cu",
@@ -5868,7 +6448,13 @@ def main() -> int:
                              "reference differentiates its jnp oracle "
                              "(src/repro/kernels/ref.py) with autodiff",
             "launches": sum(ph.get(name, 0) for ph in (
-                ops_launches, train_lm_launches, layout_launches)),
+                ops_launches, train_lm_launches, layout_launches,
+                shard_launches)),
+            "launches_by_phase": {
+                ph: n[name] for ph, n in (
+                    ("ops", ops_launches), ("train_lm", train_lm_launches),
+                    ("layout", layout_launches), ("shard", shard_launches))
+                if n.get(name, 0)},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}, "case": case})

@@ -389,9 +389,12 @@ def threefry2x32_ref(k0, k1, x0, x1):
 
 def random_bits_ref(keys, n, offset=0):
     """`jax.random.bits` (uint32, as int64): (*lead, n), elements
-    [offset, offset + n) of each key's flat draw. The counter of element i
-    is (i >> 32, i & 0xFFFFFFFF); the bits are the two output words xored."""
-    i = torch.arange(offset, offset + n, dtype=torch.int64, device=keys.device)
+    [offset, offset + n) of each key's flat draw (`offset` an int, or a
+    (*lead) int64 tensor: each key's own). The counter of element i is
+    (i >> 32, i & 0xFFFFFFFF); the bits are the two output words xored."""
+    i = torch.arange(n, dtype=torch.int64, device=keys.device) \
+        + torch.as_tensor(offset, dtype=torch.int64,
+                          device=keys.device)[..., None]
     b0, b1 = threefry2x32_ref(keys[..., :1], keys[..., 1:], i >> 32, i & _M32)
     return b0 ^ b1
 
@@ -527,9 +530,13 @@ def random_normal_ref(keys, n, offset=0, stddev=1.0):
     """`stddev * jax.random.normal(key, shape, float32)`, elements
     [offset, offset + n) of each key's flat draw: sqrt(2) *
     erf_inv(uniform(nextafter(-1, 0), 1)), then the fp32 product by
-    stddev, two roundings as the reference's `normal_init` makes them."""
+    stddev, two roundings as the reference's `normal_init` makes them.
+    `offset` and `stddev` may be (*lead) tensors, each key's own, so that
+    the slices of many leaves are drawn in one call."""
     u = random_uniform_ref(keys, n, NORMAL_LO, 1.0, offset)
-    return (SQRT2 * erfinv32_ref(u)) * _c(stddev)
+    scale = (torch.as_tensor(stddev).to(torch.float32)[..., None]
+             if torch.is_tensor(stddev) else _c(stddev))
+    return (SQRT2 * erfinv32_ref(u)) * scale
 
 
 def random_gumbel_ref(keys, n, offset=0):

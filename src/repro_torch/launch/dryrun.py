@@ -24,6 +24,10 @@ seeded serving build and a `generate`'s prefill and decode steps, on
 `meta`; with a joined mesh, the program of one rank (its own experts,
 the all_reduce moving no data on `meta`), whose `peak_live_bytes` the
 card's `max_memory_allocated` is held to (chip_smoke.py's shard phase).
+`count_train` counts one rank's train step across a mesh the same way:
+the rank's seeded build (its E/tp experts), its AdamW state and one step
+of `steps.make_train_step(..., mesh=)`; a descriptor mesh with a rank
+counts that rank's program as if joined (on `meta` no collective runs).
 
 Results go to results/dryrun_h100/<arch>__<shape>.json, one file a
 cell, so that a sweep can be resumed. Counting costs host time a
@@ -38,6 +42,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import time
@@ -142,6 +147,26 @@ def count_serve(cfg, requests: int, prompt_len: int, gen: int, *,
             for t in range(min(steps, gen)):
                 logits, cache = lm.decode_step(params, tok, cache, cfg, P + t)
                 tok = logits.argmax(-1)[:, None]
+    return counter
+
+
+def count_train(cfg, batch: int, seq: int, *, mesh=None):
+    """One train step of `steps.make_train_step(cfg, mesh=mesh)` on
+    (batch, seq) tokens from the rank's seeded build
+    (`lm.init_params(..., mesh=)`, fp32 as cfg keeps it) and its AdamW
+    state, run on `meta` under an `OpCounter`. Returns the counter."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    if mesh is not None and not act_sharding.joined(mesh):
+        mesh = dataclasses.replace(mesh, group="meta")
+    step = steps_mod.make_train_step(cfg, mesh=mesh)
+    with opanalysis.OpCounter() as counter:
+        params = lm.init_params(None, cfg, device="meta", mesh=mesh)
+        opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
+        tokens = torch.zeros((batch, seq), dtype=torch.int32, device="meta")
+        counter.track(tokens)
+        step(params, opt, {"tokens": tokens})
     return counter
 
 

@@ -28,6 +28,7 @@ from repro_torch.core import prng
 from repro_torch.models import lm
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_schedule)
+from repro_torch.sharding import act as act_sharding
 from repro_torch.tree import flatten, tree_map, unflatten
 
 
@@ -53,17 +54,37 @@ def loss_and_grads(params, batch, cfg):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
-                    total_steps: int = 10_000, grad_compress: bool = False):
+                    total_steps: int = 10_000, grad_compress: bool = False,
+                    mesh=None):
+    """The reference's train step, (params, opt_state, batch) -> (params,
+    opt_state, metrics): `error_fed_step` with a fresh error state each
+    step and a warmup of total_steps // 50."""
+    step = error_fed_step(cfg, opt_cfg, total_steps, total_steps // 50,
+                          grad_compress, mesh)
+
     def train_step(params, opt_state, batch):
-        (loss, metrics), grads = loss_and_grads(params, batch, cfg)
+        params, opt_state, _, metrics = step(params, opt_state, None, batch)
+        return params, opt_state, metrics
+    return train_step
+
+
+def error_fed_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int,
+                   warmup: int, grad_compress: bool = False, mesh=None):
+    """A train step that threads gradient compression's error state,
+    (params, opt_state, err_state, batch) -> (params, opt_state,
+    err_state, metrics); err_state None starts from zeros. `mesh`: one
+    rank's step across a joined mesh (module docstring)."""
+    def train_step(params, opt_state, err_state, batch):
+        with act_sharding.across(mesh):
+            (loss, metrics), grads = loss_and_grads(params, batch, cfg)
         if grad_compress:
             from repro_torch.optim.compress import compress_grads
-            grads, _ = compress_grads(grads)
-        lr_scale = cosine_schedule(opt_state["step"],
-                                   warmup=total_steps // 50, total=total_steps)
+            grads, err_state = compress_grads(grads, err_state, mesh=mesh)
+        lr_scale = cosine_schedule(opt_state["step"], warmup=warmup,
+                                   total=total_steps)
         params, opt_state, om = adamw_update(params, grads, opt_state,
-                                             opt_cfg, lr_scale)
-        return params, opt_state, {"loss": loss, **metrics, **om}
+                                             opt_cfg, lr_scale, mesh=mesh)
+        return params, opt_state, err_state, {"loss": loss, **metrics, **om}
     return train_step
 
 

@@ -3,16 +3,26 @@
 
 Composes the substrate: config registry -> params + AdamW -> the
 deterministic data pipeline (prefetching) -> a train step (`make_train_step`)
--> step-atomic asynchronous checkpoints -> straggler telemetry. One
-device and no mesh: the reference's production mesh and sharding rules
-come with the port's XLA tooling. It runs on CUDA unless given
-`device="cpu"` (`--device cpu`), and raises without a CUDA device
+-> step-atomic asynchronous checkpoints -> straggler telemetry. It runs on
+one device, or across the ranks of a joined mesh (`mesh`, `--tp N`): one
+rank a card, the reference's train step under its `shard_map` policy on a
+(1, N) mesh (`launch.steps`), each rank drawing, training and keeping the
+AdamW state of only its E/N experts of every MoE layer and a whole copy
+of every other leaf, all ranks fed the same batch. It runs on CUDA
+unless given `device="cpu"` (`--device cpu`), and raises without a CUDA device
 otherwise; on the card every attention layer goes through the
 flash-attention kernel and every Mamba layer through the scan kernel,
 forward and remat recompute (`kernels.ops`).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b --smoke \\
       --steps 50 --batch 8 --seq 256 --ckpt-dir /tmp/ckpt [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \\
+      --smoke --tp 4 [--device cpu]
+
+`--tp N` spawns N ranks (`launch.mesh.spawn_ranks`): NCCL over N cards,
+or with `--device cpu` N gloo ranks on the CPU, each with cores / N torch
+threads; rank 0 logs. Checkpoints across ranks are not written yet: a
+checkpoint directory with a mesh raises.
 
 The initial weights are the reference's: `lm.init_params(prng_key(seed))`
 draws `jax.random`'s numbers on the device (through the threefry kernel
@@ -22,6 +32,7 @@ the reference's run.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -31,27 +42,22 @@ from repro_torch.configs import registry
 from repro_torch.core import prng
 from repro_torch.core.agent import resolve_device
 from repro_torch.data import SyntheticLMPipeline
-from repro_torch.launch.steps import loss_and_grads
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.steps import error_fed_step
 from repro_torch.models import lm
-from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
-from repro_torch.optim.adamw import adamw_update
-from repro_torch.optim.compress import compress_grads
+from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime import StragglerMonitor
+from repro_torch.sharding import act as act_sharding
 from repro_torch.tree import tree_map
 
 
-def make_train_step(cfg, opt_cfg, total_steps, grad_compress=False):
-    def train_step(params, opt_state, err_state, batch):
-        (loss, metrics), grads = loss_and_grads(params, batch, cfg)
-        if grad_compress:
-            grads, err_state = compress_grads(grads, err_state)
-        lr_scale = cosine_schedule(opt_state["step"],
-                                   warmup=max(total_steps // 50, 1),
-                                   total=total_steps)
-        params, opt_state, om = adamw_update(params, grads, opt_state,
-                                             opt_cfg, lr_scale)
-        return params, opt_state, err_state, {"loss": loss, **metrics, **om}
-    return train_step
+def make_train_step(cfg, opt_cfg, total_steps, grad_compress=False,
+                    mesh=None):
+    """The driver's step, (params, opt_state, err_state, batch) -> (params,
+    opt_state, err_state, metrics): `launch.steps.error_fed_step` with a
+    warmup of at least one step."""
+    return error_fed_step(cfg, opt_cfg, total_steps,
+                          max(total_steps // 50, 1), grad_compress, mesh)
 
 
 def batch_on(batch_np, cfg, device):
@@ -73,16 +79,29 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
           global_batch: int = 8, seq_len: int = 256,
           ckpt_dir=None, ckpt_every: int = 50, restore: bool = False,
           grad_compress: bool = False, lr: float = 3e-4,
-          log_every: int = 10, seed: int = 0, device=None):
+          log_every: int = 10, seed: int = 0, device=None, mesh=None):
     """Train `arch` (its reduced config if `smoke`) for `steps` steps.
-    Returns (params, the losses of the steps this call ran)."""
+    `mesh`: a joined mesh (`launch.mesh.join_host_mesh`), this process one
+    of its ranks, on the mesh's device unless `device` is given; it holds
+    its E/tp experts of each MoE layer (drawn from the seed at their
+    offsets), and logs only on rank 0. Returns (params, the losses of the
+    steps this call ran)."""
     cfg = registry.get_config(arch)
     if smoke:
         cfg = registry.reduced(cfg)
-    dev = resolve_device(device, "train")
+    if mesh is not None:
+        if not act_sharding.joined(mesh):
+            raise ValueError("train takes a joined mesh "
+                             "(launch.mesh.join_host_mesh)")
+        if ckpt_dir:
+            raise ValueError("checkpoints across ranks are not written "
+                             "yet: train with a mesh takes no ckpt_dir")
+        log_every = log_every if mesh.rank == 0 else 0
+    dev = resolve_device(device or (mesh.device if mesh is not None
+                                    else None), "train")
     opt_cfg = AdamWConfig(lr=lr)
 
-    params = lm.init_params(prng.prng_key(seed), cfg, device=dev)
+    params = lm.init_params(prng.prng_key(seed), cfg, device=dev, mesh=mesh)
     opt_state = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
     err_state = tree_map(
         lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev),
@@ -105,7 +124,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     pipe.state.step = max(pipe.state.step, start_step)
     pipe.start_prefetch()
 
-    step_fn = make_train_step(cfg, opt_cfg, steps, grad_compress)
+    step_fn = make_train_step(cfg, opt_cfg, steps, grad_compress, mesh)
     monitor = StragglerMonitor()
     losses = []
     t_start = time.time()
@@ -117,7 +136,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
                 params, opt_state, err_state, batch)
             loss = float(metrics["loss"])
             losses.append(loss)
-            monitor.report(0, time.time() - t0)
+            monitor.report(mesh.rank if mesh is not None else 0,
+                           time.time() - t0)
             if log_every and (step + 1) % log_every == 0:
                 tok_s = global_batch * seq_len * log_every / max(
                     time.time() - t_start, 1e-9)
@@ -137,6 +157,12 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     return params, losses
 
 
+def _train_rank(mesh, arch, kw):
+    """One rank of `main --tp N`: its losses."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
+    return train(arch, mesh=mesh, **kw)[1]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list(registry.ARCHS))
@@ -151,12 +177,35 @@ def main():
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="cpu for the plain path; CUDA by default")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="train across N ranks, one card each (NCCL; with "
+                         "--device cpu, N gloo ranks on the CPU), the "
+                         "experts split N ways")
     args = ap.parse_args()
-    _, losses = train(args.arch, smoke=args.smoke, steps=args.steps,
-                      global_batch=args.batch, seq_len=args.seq,
-                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                      restore=args.restore, grad_compress=args.grad_compress,
-                      lr=args.lr, device=args.device)
+    kw = dict(smoke=args.smoke, steps=args.steps, global_batch=args.batch,
+              seq_len=args.seq, ckpt_dir=args.ckpt_dir,
+              ckpt_every=args.ckpt_every, restore=args.restore,
+              grad_compress=args.grad_compress, lr=args.lr)
+    if args.tp:
+        cpu = args.device == "cpu"
+        if not cpu and torch.cuda.device_count() < args.tp:
+            raise SystemExit(f"--tp {args.tp} takes {args.tp} cards; "
+                             f"{torch.cuda.device_count()} found")
+        if args.ckpt_dir:
+            raise SystemExit("--tp takes no --ckpt-dir: checkpoints across "
+                             "ranks are not written yet")
+        ranked = mesh_lib.spawn_ranks(
+            _train_rank, args.tp, (args.arch, kw),
+            backend="gloo" if cpu else "nccl",
+            devices=["cpu"] * args.tp if cpu else None)
+        if any(r != ranked[0] for r in ranked):
+            raise SystemExit(f"the ranks' losses differ: {ranked}")
+        losses = ranked[0]
+        print(f"{args.tp} ranks, equal losses: "
+              f"{' '.join(f'{x:.6f}' for x in losses)}")
+    else:
+        _, losses = train(args.arch, device=args.device, **kw)
+        print(f"losses: {' '.join(f'{x:.6f}' for x in losses)}")
     print(f"final loss: {losses[-1]:.4f} (from {losses[0]:.4f})")
 
 

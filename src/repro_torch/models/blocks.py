@@ -184,6 +184,9 @@ def apply_stack(params, x, cfg, *, positions, cache=None, memory=None,
         if mode == "none":
             x, a = apply_superblock(sb, x, cfg, **kw)
         else:
-            x, a = checkpoint(apply_superblock, sb, x, cfg, **kw, **ckpt)
+            # the recompute under this policy (the MoE dispatch, the
+            # attention knobs), in whichever thread the backward runs it
+            x, a = checkpoint(act_sharding.bound(apply_superblock), sb, x,
+                              cfg, **kw, **ckpt)
         aux = aux + a
     return x, aux

@@ -35,7 +35,7 @@ from repro_torch.models.common import (act_fn, apply_dense, init_dense,
 from repro_torch.sharding import act as act_sharding
 
 LOCAL_BLOCKS = 32      # the block-local dispatch's blocks (>= dp x pod)
-EXPERT_LEAVES = ("moe_wg", "moe_wu", "moe_wd")   # (E, ...) each
+EXPERT_LEAVES = act_sharding.EXPERT_LEAVES    # (E, ...) each
 
 
 # ------------------------------------------------------------------ dense MLP

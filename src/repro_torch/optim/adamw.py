@@ -22,6 +22,16 @@ stacked superblock leaf one or more superblocks at a time), so that a
 step needs a few hundred MB beyond the parameters, gradients and moments
 whatever the model's size; a small model's leaves make one group. Each
 element's arithmetic does not depend on the grouping.
+
+Across ranks (`mesh`, joined: `launch.mesh.join_host_mesh`, one rank a
+card) a rank holds E/tp experts of each expert leaf
+(`sharding.act.split_leaves`) and every other leaf whole, with that
+leaf's whole gradient (`sharding.act`). The global norm is the one norm
+of all the model's gradients: the ranks' sums of squares of the expert
+leaves are summed by one all_reduce, and every rank adds each leaf's
+sum in the sorted-leaf order, each counted once. So every rank clips by
+the same scale as one device, and its leaves held whole take the same
+update on every rank.
 """
 from __future__ import annotations
 
@@ -30,7 +40,8 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.sharding import act as act_sharding
+from repro_torch.tree import flatten, leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +65,19 @@ def adamw_init(params, moment_dtype=torch.float32) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=step_device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves (sorted-key order) of sum(x^2), fp32."""
+def global_norm(tree, mesh=None) -> torch.Tensor:
+    """sqrt of the sum over leaves (sorted-key order) of sum(x^2), fp32.
+    On a joined `mesh` an expert leaf's sum is the ranks' sums summed (one
+    all_reduce for all of them)."""
+    sums = {path: torch.sum(torch.square(x.float()))
+            for path, x in flatten(tree)}
+    split = act_sharding.split_leaves(tree, mesh)
+    if split:
+        whole = act_sharding.reduce_stats(
+            torch.stack([sums[p] for p in split]), mesh)
+        sums.update(zip(split, whole.unbind()))
     sq = None
-    for x in leaves(tree):
-        s = torch.sum(torch.square(x.float()))
+    for s in sums.values():
         sq = s if sq is None else sq + s
     return torch.sqrt(sq)
 
@@ -113,12 +132,14 @@ def _update(group, scale, bc1, bc2, lr, cfg: AdamWConfig):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0,
+                 mesh=None):
     """Returns (params, state, {"grad_norm", "lr"}); params, m and v are
     updated in place, `state["step"]` is a new tensor. The update runs
-    group after group of leaves (`_groups`)."""
+    group after group of leaves (`_groups`). `mesh`: a joined mesh whose
+    rank holds its slice of the expert leaves (`global_norm`)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     stepf = step.to(torch.float32)
     one = torch.ones((), dtype=torch.float32, device=stepf.device)

@@ -8,6 +8,12 @@ by tensors (a CUDA tensor divided by a Python number is multiplied by its
 reciprocal, which rounds otherwise). `compressed_psum` is the reference's
 explicit compressed all-reduce, over a `torch.distributed` group where
 the reference's runs inside `shard_map`.
+
+Across ranks (`mesh`, joined) a rank holds its E/tp experts of each
+expert leaf, where the reference quantizes the whole leaf with one
+scale: the ranks' largest magnitudes of those leaves are maxed by one
+all_reduce before each rank quantizes its slice against the whole
+leaf's scale. The error state is each rank's own, for its slice.
 """
 from __future__ import annotations
 
@@ -15,12 +21,15 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.sharding import act as act_sharding
+from repro_torch.tree import flatten, tree_map, unflatten
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric int8: returns (q, scale)."""
-    amax = torch.max(torch.abs(x)) + 1e-12
+def quantize_int8(x: torch.Tensor, amax=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8: returns (q, scale). `amax`: the largest
+    |value| of the whole tensor that `x` is a slice of (default: x's)."""
+    amax = (torch.max(torch.abs(x)) if amax is None else amax) + 1e-12
     scale = amax / torch.tensor(127.0, dtype=amax.dtype, device=amax.device)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -30,21 +39,28 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def compress_grads(grads, error_state=None):
+def compress_grads(grads, error_state=None, mesh=None):
     """Quantize every gradient leaf with error feedback.
-    Returns (dequantized_grads, new_error_state)."""
+    Returns (dequantized_grads, new_error_state). `mesh`: a joined mesh
+    whose rank holds its slice of the expert leaves (module docstring)."""
     if error_state is None:
         error_state = tree_map(
             lambda g: torch.zeros(g.shape, dtype=torch.float32,
                                   device=g.device), grads)
-
-    def one(g, e):
-        g32 = g.to(torch.float32) + e
-        dq = dequantize_int8(*quantize_int8(g32))
-        return dq.to(g.dtype), g32 - dq
-    pairs = tree_map(one, grads, error_state)     # (dq, err) leaves
-    return (tree_map(lambda p: p[0], pairs),
-            tree_map(lambda p: p[1], pairs))
+    g_at, e_at = dict(flatten(grads)), dict(flatten(error_state))
+    split = act_sharding.split_leaves(grads, mesh)
+    amax = {}
+    if split:
+        whole = act_sharding.reduce_stats(torch.stack([
+            torch.max(torch.abs(g_at[p].to(torch.float32) + e_at[p]))
+            for p in split]), mesh, op="max")
+        amax = dict(zip(split, whole.unbind()))
+    dq, err = {}, {}
+    for path, g in g_at.items():
+        g32 = g.to(torch.float32) + e_at[path]
+        d = dequantize_int8(*quantize_int8(g32, amax.get(path)))
+        dq[path], err[path] = d.to(g.dtype), g32 - d
+    return unflatten(grads, dq), unflatten(grads, err)
 
 
 def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -21,7 +21,12 @@ layers run only this rank's E/tp experts and sum the ranks' outputs with
 (`models/moe.py`). `copy_to_tp` and `reduce_from_tp` are the pair of
 autograd Functions `shard_map` transposes into each other: the
 replicated input passes forward as it is and its cotangent is summed over
-the ranks; the psum's cotangent passes back as it is.
+the ranks; the psum's cotangent passes back as it is. So in a train step
+every rank computes the whole gradient of every leaf it holds whole, and
+its own experts' share of the expert leaves (`EXPERT_LEAVES`, the
+leaves `split_leaves` names); the optimizer sums or maxes its statistics
+of those leaves over the ranks (`reduce_stats`).
+`across(mesh)` is the context a joined mesh's model calls run in.
 
 Roles:
   "dp"  — batch-like dim  -> (pod, data) axes
@@ -38,10 +43,20 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.sharding.rules import P
+from repro_torch.tree import flatten
 
 _state = threading.local()
 
-all_reduces = 0        # forward all_reduce calls over a joined mesh
+# the leaves a rank of a joined mesh holds experts [j E/tp, (j+1) E/tp) of,
+# j its rank, (L, E, ...) each when stacked: the MoE layers' experts
+EXPERT_LEAVES = ("moe_wg", "moe_wu", "moe_wd")
+
+# all_reduce calls over a joined mesh: the MoE layers' psums (a
+# prefill's, a decode step's, a train step's forward and its remat
+# re-forward), copy_to_tp's cotangent sums, the optimizer's statistics
+all_reduces = 0
+cotangent_all_reduces = 0
+stat_all_reduces = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +107,18 @@ def policy(p: Optional[ActivationPolicy]):
         yield
     finally:
         _state.policy = prev
+
+
+def bound(fn):
+    """`fn` that runs under the policy active now, from whatever thread
+    calls it: a checkpoint's recompute of CUDA work runs in autograd's
+    device thread, which does not see this thread's policy."""
+    pol = current()
+
+    def run(*args, **kwargs):
+        with policy(pol):
+            return fn(*args, **kwargs)
+    return run
 
 
 def spec_for(shape, roles: Dict[int, str]) -> Optional[P]:
@@ -149,9 +176,11 @@ class _CopyToTP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        global cotangent_all_reduces
         import torch.distributed as dist
         g = g.clone()
         dist.all_reduce(g, group=ctx.mesh.group)
+        cotangent_all_reduces += 1
         return g, None
 
 
@@ -173,3 +202,41 @@ def copy_to_tp(x, mesh):
             and x.device.type != "meta":
         return _CopyToTP.apply(x, mesh)
     return x
+
+
+def split_leaves(tree, mesh):
+    """The paths of `tree`'s leaves that a rank of the joined `mesh` holds
+    a slice of (its experts of the `EXPERT_LEAVES`), in sorted-leaf order;
+    none where `mesh` is not joined."""
+    if not joined(mesh):
+        return []
+    return [path for path, _ in flatten(tree)
+            if path.rsplit("/", 1)[-1] in EXPERT_LEAVES]
+
+
+def reduce_stats(x, mesh, op="sum"):
+    """An optimizer's per-rank statistics `x` of the expert leaves (sums
+    of squares, largest magnitudes) summed ("sum") or maxed ("max") over
+    the joined mesh's ranks, in place, so that every rank holds the whole
+    leaves' values; on `meta` (a dry run) `x` itself: no data."""
+    global stat_all_reduces
+    if x.device.type == "meta":
+        return x
+    import torch.distributed as dist
+    dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
+                           "max": dist.ReduceOp.MAX}[op], group=mesh.group)
+    stat_all_reduces += 1
+    return x
+
+
+def across(mesh):
+    """The context the model calls of a rank of a joined `mesh` run in:
+    the active policy (the default one if none) with the reference's
+    `shard_map` dispatch over `mesh`; nothing without a mesh."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    if not joined(mesh):
+        raise ValueError("a step across ranks takes a joined mesh "
+                         "(launch.mesh.join_host_mesh)")
+    return policy(dataclasses.replace(current() or ActivationPolicy(),
+                                      moe_dispatch="shard_map", mesh=mesh))

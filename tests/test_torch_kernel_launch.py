@@ -1210,6 +1210,43 @@ def test_remat_modes_on_the_card(cuda):
                 1e-5 * float(a.abs().max()), (mode, path)
 
 
+def test_remat_recompute_runs_under_the_callers_policy(cuda, tmp_path):
+    """On the card autograd runs a checkpoint's recompute in its device
+    thread, which does not see the caller's thread-local policy; the
+    superblock's checkpoint carries it (`act.bound`). Under a one-rank
+    joined mesh (gloo, on the card) each MoE layer of the reduced
+    dbrx-132b takes the rank's dispatch in the forward and again in the
+    remat re-forward (an all_reduce each) and sums its input's and gates'
+    cotangents in the backward (two more); the loss and every gradient
+    equal those without a mesh (the one rank holds every expert) to 1e-5
+    of each leaf's largest |value|."""
+    from repro_torch.launch.mesh import join_host_mesh, leave
+    cfg = dataclasses.replace(
+        registry.reduced(registry.get_config("dbrx-132b")),
+        compute_dtype="float32")
+    params = lm.init_params(prng.prng_key(0), cfg, device=cuda)
+    toks = torch.randint(2, cfg.vocab_size, (2, 32), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    (want_loss, _), want = loss_and_grads(params, {"tokens": toks}, cfg)
+    mesh = join_host_mesh(0, 1, str(tmp_path), backend="gloo",
+                          device=str(cuda) + ":0")
+    try:
+        act.all_reduces = act.cotangent_all_reduces = 0
+        with act.across(mesh):
+            (loss, _), grads = loss_and_grads(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        reduced = (act.all_reduces, act.cotangent_all_reduces)
+    finally:
+        leave(mesh)
+    moe_layers = cfg.n_layers
+    assert reduced == (2 * moe_layers, 2 * moe_layers)
+    assert abs(float(loss) - float(want_loss)) <= \
+        1e-5 * abs(float(want_loss))
+    for (path, g), (_, w) in zip(flatten(grads), flatten(want)):
+        assert float((g - w).abs().max()) <= \
+            1e-5 * float(w.abs().max()), path
+
+
 # ------------------------------------------------------ the threefry kernel
 from repro_torch.kernels import threefry  # noqa: E402
 
