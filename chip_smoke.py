@@ -388,8 +388,17 @@ MoE layer at full width against the one-device emulation (SHARD_MOE_*).
 Each train run: exact kernel and all_reduce launches a step, losses,
 norms and a checksum of every leaf held whole equal on every rank, the
 first norm against the whole model's gathered; on four cards each
-rank's peak within SHARD_PEAK_RATIO of `launch.dryrun.count_train`. A
-rank that fails or outlasts SHARD_TIMEOUT_S fails the phase.
+rank's peak within SHARD_PEAK_RATIO of `launch.dryrun.count_train`
+(counted once, in this process, for every rank). Each train run on one
+card, and on four cards one more dbrx-132b run at its published widths,
+checkpoints across its ranks (SHARD_CKPT_*): an asynchronous save after
+step 2, then the checkpoint restored in the same processes and step 3
+run again, bit-equal to the unbroken step 3 on every rank; the directory
+read back without the Checkpointer, each rank's slice bit-equal to what
+it saved; on one card the tp = 4 manifest equal to the tp = 1 run's.
+On four cards, `compressed_psum` across the NCCL ranks on a MoE layer's
+gradient-sized tensor, exact (SHARD_PSUM_SEED). A rank that fails or
+outlasts SHARD_TIMEOUT_S fails the phase.
 
 With `--profile`, one more card serve runs under `torch.profiler`: its
 line gives the device's busy time by kernel and its idle share of the
@@ -4864,8 +4873,8 @@ def shard_serve(mesh, arch, layers, mode, ref_dir):
 
 def shard_rank(mesh, runs, ref_dir):
     """A rank's runs, one after the other: [(kind, arch, layers, mode)],
-    kind "serve" (`shard_serve`), "train" (`shard_train`) or "moe"
-    (`shard_moe_layer`). Returns its rows."""
+    kind "serve" (`shard_serve`), "train" (`shard_train`), "moe"
+    (`shard_moe_layer`) or "psum" (`shard_psum`). Returns its rows."""
     torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
@@ -4873,7 +4882,7 @@ def shard_rank(mesh, runs, ref_dir):
     for kind, arch, layers, mode in runs:
         t0 = time.perf_counter()
         run = {"serve": shard_serve, "train": shard_train,
-               "moe": shard_moe_layer}[kind]
+               "moe": shard_moe_layer, "psum": shard_psum}[kind]
         rows.append(run(mesh, arch, layers, mode, ref_dir))
         print(f"shard: rank {mesh.rank}/{mesh.size} {kind} {arch} {mode} "
               f"{time.perf_counter() - t0:.1f} s "
@@ -4928,6 +4937,40 @@ SHARD_TRAIN_SHAPE = {"full": (1, 4096), "cut": (4, 256)}
 SHARD_TRAIN_LR = 3e-4
 SHARD_NORM_RTOL = 1e-5
 SHARD_SUM_CHUNK = 1 << 24  # elements a checksum or fp64 sum takes at once
+SHARD_COUNTS = "train_counts.json"   # the ranks' `count_train`, by the parent
+# Checkpoints across ranks (`checkpoint.Checkpointer(mesh=)`), in every
+# train run on one card (tp = 1 and the gloo ranks) and, on four cards, in
+# one more dbrx-132b run at its published widths ("full_ckpt"): an
+# asynchronous save of (params, AdamW state) after step SHARD_CKPT_STEP
+# under build/, the next step with the save in flight, then the
+# checkpoint restored into the same tensors (`restore(into=True)`) and
+# the last step run again. Held bit for bit: the restored leaves to those
+# saved; the re-run step's loss, grad norm and every leaf the rank holds
+# (parameters, m, v) to the unbroken step's; rank 0 reads the directory
+# with the jax-free `load_reference_checkpoint` (every sha1 checked) and
+# holds each rank's slice of every leaf to what that rank saved; on one
+# card the tp = 4 manifest to the tp = 1 run's, leaf for leaf (names,
+# shapes, dtypes, sha1s); the re-run step's launches exact. Four cards:
+# dbrx's depth is the deepest of SHARD_CKPT_DEPTHS whose checkpoint
+# (parameters, m and v in fp32: 12 B a parameter) fits half of the free
+# space of build/ and would write in SHARD_CKPT_MAX_S at the rate of a
+# probe (SHARD_RANKS threads writing SHARD_PROBE_BYTES each to build/,
+# fsynced: the disk's rate, below what writes into the page cache see);
+# the checkpoint's GB, each rank's snapshot and write seconds and GB/s,
+# the step with a save in flight beside the step without, and the
+# restore seconds.
+SHARD_CKPT_STEP = 2
+SHARD_CKPT_ROOT = ROOT / "build" / "chip_smoke_shard_ckpt"
+SHARD_CKPT_ARCH = "dbrx-132b"
+SHARD_CKPT_DEPTHS = (3, 2, 1)
+SHARD_CKPT_MAX_S = 90
+SHARD_PROBE_BYTES = 1 << 30
+# `compressed_psum` across the four NCCL ranks: one call on a MoE layer's
+# (SHARD_MOE_T, d_model) fp32 gradient-sized tensor at dbrx's width, rank
+# r's drawn from seed SHARD_PSUM_SEED + r; every rank draws all four and
+# holds the call, exactly, to the int32 sum of the four payloads
+# requantized against the largest scale, times that scale.
+SHARD_PSUM_SEED = 21
 
 
 def shard_train_cfg(arch, layers, mode):
@@ -5031,15 +5074,71 @@ def driver_step(step_fn):
     return run
 
 
+def step_counts():
+    """The kernel and all_reduce launches since the counts were zeroed."""
+    return {**counts_lm(), **bwd_counts(),
+            "all_reduce": act_sharding.all_reduces,
+            "cotangent_all_reduce": act_sharding.cotangent_all_reduces,
+            "stat_all_reduce": act_sharding.stat_all_reduces}
+
+
+def zero_step_counts():
+    torch.cuda.synchronize()
+    fa.launches = ms.launches = fa.bwd_launches = ms.bwd_launches = 0
+    act_sharding.all_reduces = act_sharding.cotangent_all_reduces = 0
+    act_sharding.stat_all_reduces = 0
+
+
+def held_sums(params, opt, part):
+    """`checksums` of `part` of the parameters, m and v, (2, 3 leaves)."""
+    return torch.cat([checksums(t, part)
+                      for t in (params, opt["m"], opt["v"])], 1)
+
+
+def file_sums(tree, parts, device):
+    """`held_sums` under each of `parts` of a checkpoint read by
+    `load_reference_checkpoint` (numpy leaves, bf16 as `|V2` words), a
+    leaf at a time on `device`: (len(parts), 2, 3 leaves)."""
+    out = [[] for _ in parts]
+    for t in (tree["0"], tree["1"]["m"], tree["1"]["v"]):
+        for path, a in flatten(t):
+            leaf = torch.from_numpy(a.view(np.int16) if a.dtype.kind == "V"
+                                    else a).to(device)
+            for i, part in enumerate(parts):
+                out[i].append(checksums({path: leaf}, part))
+            del leaf
+    return torch.stack([torch.cat(cols, 1) for cols in out])
+
+
+def ckpt_arrays(d):
+    """A committed step's manifest entries (names, files, shapes, dtypes,
+    sha1s)."""
+    return json.loads((pathlib.Path(d) / "MANIFEST.json").read_text())[
+        "arrays"]
+
+
+def ckpt_bytes(cfg) -> int:
+    """The bytes of a train checkpoint of `cfg` (parameters, m and v, the
+    step), counted on `meta`."""
+    mom = torch.tensor([], dtype=getattr(torch, cfg.opt_moment_dtype))
+    return sum(t.numel() * (t.element_size() + 2 * mom.element_size())
+               for _, t in flatten(lm.init_params(None, cfg, device="meta"))
+               ) + 4
+
+
 def shard_train(mesh, arch, layers, mode, ref_dir):
     """One train run on this rank. mode: "ref" (tp = 1 in the parent, no
     mesh, on card 0: writes its losses and norms to ref_dir), "agree"
-    (tp = 4 at the reduced configs, rank 0 compares with the ref) or
-    "full" (tp = 4 on four cards). Returns this rank's row."""
-    cfg = shard_train_cfg(arch, layers, mode)
-    B, S = SHARD_TRAIN_SHAPE["full" if mode == "full" else "cut"]
+    (tp = 4 at the reduced configs, rank 0 compares with the ref), "full"
+    (tp = 4 on four cards) or "full_ckpt" (the same with the checkpoint
+    round trip, SHARD_CKPT_*). Returns this rank's row."""
+    full = mode.startswith("full")
+    cfg = shard_train_cfg(arch, layers, "full" if full else mode)
+    B, S = SHARD_TRAIN_SHAPE["full" if full else "cut"]
     device = mesh.device if mesh is not None else "cuda:0"
     lead = mesh is None or mesh.rank == 0
+    ckpt_on = mode != "full"
+    ckpt_dir = SHARD_CKPT_ROOT / f"{arch}.{layers}.{mode}"
     bad, stage = [], {}
     clock = time.perf_counter()
 
@@ -5048,15 +5147,24 @@ def shard_train(mesh, arch, layers, mode, ref_dir):
         now = time.perf_counter()
         stage[name] = now - clock
         clock = now
+
+    def barrier():
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.barrier(group=mesh.group)
     gc.collect()
     torch.cuda.empty_cache()
-    counted = dryrun.count_train(cfg, B, S, mesh=mesh).peak_live_bytes
+    if mesh is None:
+        counted = dryrun.count_train(cfg, B, S).peak_live_bytes
+    else:       # counted once in the parent: a mesh's ranks are alike
+        counted = json.loads((pathlib.Path(ref_dir) / SHARD_COUNTS).read_text(
+        ))[f"{arch}.{layers}.{mode}"]
+    if lead and ckpt_dir.exists():
+        shutil.rmtree(ckpt_dir)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     threefry.normal_launches = 0
-    if mesh is not None:
-        import torch.distributed as dist
-        dist.barrier(group=mesh.group)
+    barrier()
     lap("meta_count")
     params = lm.init_params(prng.prng_key(0), cfg, device=device, mesh=mesh)
     opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
@@ -5081,13 +5189,12 @@ def shard_train(mesh, arch, layers, mode, ref_dir):
             "mamba_scan_bwd": 2 * mamba_layers,
             "all_reduce": 2 * M, "cotangent_all_reduce": 2 * M,
             "stat_all_reduce": int(mesh is not None)}
+    mine = rank_part(0, 1)              # every leaf as this rank holds it
+    ckpt = Checkpointer(ckpt_dir, mesh=mesh) if ckpt_on else None
     losses, norms, lrs, times, per_step, profile = [], [], [], [], [], None
-    alike, held = [], []
+    alike, held, saved = [], [], None
     for s, batch in enumerate(batches):
-        torch.cuda.synchronize()
-        fa.launches = ms.launches = fa.bwd_launches = ms.bwd_launches = 0
-        act_sharding.all_reduces = act_sharding.cotangent_all_reduces = 0
-        act_sharding.stat_all_reduces = 0
+        zero_step_counts()
         if mode == "full" and lead and s == len(batches) - 1:
             profile, metrics = profiled_step(driver_step(step_fn),
                                              params, opt, batch)
@@ -5097,23 +5204,18 @@ def shard_train(mesh, arch, layers, mode, ref_dir):
             params, opt, metrics = step_fn(params, opt, batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t1)
-        per_step.append({**counts_lm(), **bwd_counts(),
-                         "all_reduce": act_sharding.all_reduces,
-                         "cotangent_all_reduce":
-                         act_sharding.cotangent_all_reduces,
-                         "stat_all_reduce": act_sharding.stat_all_reduces})
+        per_step.append(step_counts())
         scalars = torch.stack([metrics["loss"].float(),
                                metrics["grad_norm"].float()])
         losses.append(float(scalars[0]))
         norms.append(float(scalars[1]))
         lrs.append(float(metrics["lr"]))
         trees = (params, opt["m"], opt["v"])
-        if mode != "full":     # (ranks, 2, leaves): each tp = 4 rank's part
+        if not full:           # (ranks, 2, leaves): each tp = 4 rank's part
             parts = ([rank_part(r, SHARD_RANKS) for r in range(SHARD_RANKS)]
                      if mesh is None else [rank_part(0, 1)])
-            held.append(torch.stack([torch.cat(
-                [checksums(t, part) for t in trees], 1)
-                for part in parts]).cpu())
+            held.append(torch.stack([held_sums(params, opt, part)
+                                     for part in parts]).cpu())
         if mesh is not None:
             sums = torch.cat([checksums(t, whole_only) for t in trees], 1)
             every = gathered(mesh, sums)
@@ -5121,8 +5223,26 @@ def shard_train(mesh, arch, layers, mode, ref_dir):
             alike.append({"step": s,
                           "leaves_held_whole": bool((every == sums).all()),
                           "loss_and_norm": bool((scal == scalars).all())})
+        if ckpt_on and s + 1 == SHARD_CKPT_STEP:
+            saved = held_sums(params, opt, mine)
+            t1 = time.perf_counter()
+            ckpt.save(s + 1, [params, opt], extra={"data_step": s + 1},
+                      blocking=False)
+            save_call_s = time.perf_counter() - t1
+            barrier()   # the next step timed from the last rank's snapshot
     peak = torch.cuda.max_memory_allocated() - base
     lap("steps")
+    ckpt_row = None
+    if ckpt_on:
+        ckpt_row = shard_ckpt_round_trip(
+            mesh, ckpt, ckpt_dir, step_fn, params, opt, batches[-1], saved,
+            losses[-1], norms[-1], save_call_s, times, mode, arch, layers,
+            bad)
+        per_step.append(ckpt_row.pop("counts"))
+        if "profile" in ckpt_row:
+            profile = ckpt_row.pop("profile")
+        params, opt = ckpt_row.pop("state")
+        lap("checkpoint")
     if any(p != want for p in per_step):
         bad.append(f"a step launched {per_step}, want {want}")
     if not all(np.isfinite(losses)):
@@ -5138,7 +5258,7 @@ def shard_train(mesh, arch, layers, mode, ref_dir):
                    f"whole model's {norm_whole}: {norm_err}")
     ratio = peak / counted
     lo, hi = SHARD_PEAK_RATIO
-    if mode == "full" and not lo <= ratio <= hi:
+    if full and not lo <= ratio <= hi:
         bad.append(f"peak {peak} over the meta count {counted}: {ratio}")
     ref_file = pathlib.Path(ref_dir) / f"{arch}.train.pt"
     agreement = None
@@ -5156,8 +5276,8 @@ def shard_train(mesh, arch, layers, mode, ref_dir):
             # per step: the leaves (of parameters, m, v) whose checksums
             # differ from the tp = 1 run's part for this rank
             "leaves_unequal": [
-                int((mine[0] != want[mesh.rank]).any(0).sum())
-                for mine, want in zip(held, want_run["held"])],
+                int((mine_[0] != want_[mesh.rank]).any(0).sum())
+                for mine_, want_ in zip(held, want_run["held"])],
             "leaves": int(held[0].shape[-1])}
         agreement["bit_equal"] = (losses == want_run["losses"]
                                   and norms == want_run["norms"]
@@ -5185,10 +5305,112 @@ def shard_train(mesh, arch, layers, mode, ref_dir):
            "build_threefry_launches": drawn, "peak_bytes": peak,
            "meta_peak_bytes": counted, "peak_ratio_card_over_meta": ratio,
            "all_reduce": reduce_ms, "tp_agreement": agreement,
-           "stage_s": stage, "ok": not bad, "mismatches": bad}
+           "checkpoint": ckpt_row, "stage_s": stage, "ok": not bad,
+           "mismatches": bad}
     del params, opt, batches, step_fn
     gc.collect()
     torch.cuda.empty_cache()
+    return row
+
+
+def shard_ckpt_round_trip(mesh, ckpt, ckpt_dir, step_fn, params, opt, batch,
+                          saved, loss, norm, save_call_s, times, mode, arch,
+                          layers, bad):
+    """The checkpoint round trip after a run's last step (see
+    SHARD_CKPT_STEP): the save's commit, the restore into the same
+    tensors, the last step again, each held bit for bit; rank 0 reads the
+    directory with `load_reference_checkpoint` and holds each rank's slice
+    of every leaf to what that rank saved; at "agree", the manifest to the
+    tp = 1 run's. Returns the row, with the re-run step's launch counts
+    ("counts"), its profile on four cards' rank 0 ("profile") and the
+    state ("state")."""
+    lead = mesh is None or mesh.rank == 0
+    ranks = 1 if mesh is None else mesh.size
+    device = params["embed"].device
+    t0 = time.perf_counter()
+    ckpt.wait()
+    wait_s = time.perf_counter() - t0
+    last = held_sums(params, opt, rank_part(0, 1))
+    t0 = time.perf_counter()
+    _, step, extra = ckpt.restore([params, opt], into=True)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored = held_sums(params, opt, rank_part(0, 1))
+    if step != SHARD_CKPT_STEP or extra != {"data_step": SHARD_CKPT_STEP}:
+        bad.append(f"restored step {step} ({extra}), want "
+                   f"{SHARD_CKPT_STEP}")
+    if not torch.equal(restored, saved):
+        bad.append("the restored leaves differ from those saved: "
+                   f"{int((restored != saved).any(0).sum())} leaves")
+    zero_step_counts()
+    row = {}
+    if mode == "full_ckpt" and lead:
+        row["profile"], metrics = profiled_step(driver_step(step_fn),
+                                                params, opt, batch)
+        params, opt = row["profile"].pop("state")
+        rerun_s = row["profile"]["wall_ms"] / 1e3
+    else:
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        rerun_s = time.perf_counter() - t0
+    row["counts"] = step_counts()
+    again = (float(metrics["loss"].float()), float(
+        metrics["grad_norm"].float()))
+    rerun_equal = {"loss_and_norm": again == (loss, norm),
+                   "leaves": bool(torch.equal(
+                       held_sums(params, opt, rank_part(0, 1)), last))}
+    if not all(rerun_equal.values()):
+        bad.append(f"the restored step {SHARD_CKPT_STEP + 1} against the "
+                   f"unbroken one: {rerun_equal}, {again} vs {(loss, norm)}")
+    # rank 0 reads the directory without the Checkpointer
+    every = gathered(mesh, saved)
+    step_dir = ckpt_dir / f"step_{SHARD_CKPT_STEP:08d}"
+    arrays = ckpt_arrays(step_dir)
+    reread, manifest_tp1 = None, None
+    if lead:
+        t0 = time.perf_counter()
+        tree = load_reference_checkpoint(step_dir)
+        got = file_sums(tree, [rank_part(r, ranks) for r in range(ranks)],
+                        device)
+        del tree
+        reread = {"seconds": time.perf_counter() - t0, "ranks_equal": [
+            bool(torch.equal(got[r], every[r])) for r in range(ranks)]}
+        if not all(reread["ranks_equal"]):
+            bad.append(f"load_reference_checkpoint against the ranks' "
+                       f"saved leaves: {reread}")
+        if mode == "agree":
+            tp1 = ckpt_arrays(SHARD_CKPT_ROOT / f"{arch}.{layers}.ref" /
+                              step_dir.name)
+            manifest_tp1 = {"leaves": len(tp1), "equal": arrays == tp1,
+                            "unequal": [k for k in tp1
+                                        if arrays.get(k) != tp1[k]][:8]}
+            if not manifest_tp1["equal"]:
+                bad.append(f"the tp = {ranks} manifest against tp = 1's: "
+                           f"{manifest_tp1}")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier(group=mesh.group)
+    if lead and mode == "full_ckpt":
+        shutil.rmtree(ckpt_dir)           # tens of GB; the ref's stay
+    gb = sum(np.prod(a["shape"], dtype=np.int64) * (
+        2 if a["dtype"] == "bfloat16" else np.dtype(a["dtype"]).itemsize)
+        for a in arrays.values()) / 1e9
+    stats = dict(ckpt.last_save)
+    row.update({
+        "step": SHARD_CKPT_STEP, "gb": gb, "leaves": len(arrays),
+        "rank_gb_written": stats["bytes"] / 1e9,
+        "save_call_s": save_call_s, "snapshot_s": stats["snapshot_s"],
+        "write_s": stats["write_s"],
+        "write_gb_per_s": stats["bytes"] / 1e9 / max(stats["write_s"], 1e-9),
+        "hash_s": stats.get("hash_s"), "commit_s": stats["commit_s"],
+        "wait_after_last_step_s": wait_s, "restore_s": restore_s,
+        "restore_gb_read": ckpt.last_restore["bytes"] / 1e9,
+        "step_s_without_save": times[SHARD_CKPT_STEP - 1],
+        "step_s_save_in_flight": times[SHARD_CKPT_STEP],
+        "rerun_step_s": rerun_s, "rerun_equal": rerun_equal,
+        "reread": reread, "manifest_tp1": manifest_tp1,
+        "state": (params, opt)})
     return row
 
 
@@ -5331,6 +5553,90 @@ def shard_moe_layer(mesh, arch, layers, mode, ref_dir):
             "mismatches": bad}
 
 
+def shard_psum(mesh, arch, layers, mode, ref_dir):
+    """A rank's `compressed_psum` call (SHARD_PSUM_SEED; layers unused),
+    held to the sum of the requantized payloads; ms a call."""
+    import torch.distributed as dist
+    cfg = registry.get_config(arch)
+    shape = (SHARD_MOE_T, cfg.d_model)
+    xs = [3 * torch.randn(shape, generator=torch.Generator(
+        mesh.device).manual_seed(SHARD_PSUM_SEED + r), device=mesh.device)
+        for r in range(mesh.size)]
+    scale = torch.stack([quantize_int8(x)[1] for x in xs]).max()
+    want = sum(torch.clamp(torch.round(x / scale), -127, 127).to(
+        torch.int8).to(torch.int32) for x in xs).to(torch.float32) * scale
+    got = compressed_psum(xs[mesh.rank], group=mesh.group)
+    torch.cuda.synchronize()
+    row = {"arch": arch, "mode": mode, "rank": mesh.rank,
+           "shape": list(shape), "equal": bool(torch.equal(got, want)),
+           "max_abs_err": float((got - want).abs().max()),
+           "backend": dist.get_backend(mesh.group)}
+    dist.barrier(group=mesh.group)
+    t0 = time.perf_counter()
+    for _ in range(SHARD_AR_REPS):
+        compressed_psum(xs[mesh.rank], group=mesh.group)
+    torch.cuda.synchronize()
+    row["ms"] = (time.perf_counter() - t0) * 1e3 / SHARD_AR_REPS
+    row["mismatches"] = [] if row["equal"] else [f"compressed_psum: {row}"]
+    row["ok"] = row["equal"]
+    return row
+
+
+def shard_counts(runs, ref_dir):
+    """Each train run's `count_train` on meta for a rank of the
+    (1, SHARD_RANKS) mesh, counted once here (every rank's is the same),
+    written to ref_dir for the ranks."""
+    counted = {}
+    for kind, arch, layers, mode in runs:
+        if kind == "train":
+            full = mode.startswith("full")
+            cfg = shard_train_cfg(arch, layers, "full" if full else mode)
+            B, S = SHARD_TRAIN_SHAPE["full" if full else "cut"]
+            counted[f"{arch}.{layers}.{mode}"] = dryrun.count_train(
+                cfg, B, S, mesh=Mesh(("data", "model"), (1, SHARD_RANKS),
+                                     rank=0)).peak_live_bytes
+    (pathlib.Path(ref_dir) / SHARD_COUNTS).write_text(json.dumps(counted))
+
+
+def write_probe() -> float:
+    """GB/s of SHARD_RANKS threads each writing and fsyncing
+    SHARD_PROBE_BYTES of random bytes to build/ at once."""
+    block = np.random.default_rng(0).integers(
+        0, 256, 1 << 26, dtype=np.uint8).tobytes()
+    paths = [SHARD_CKPT_ROOT / f"probe{r}" for r in range(SHARD_RANKS)]
+
+    def write(path):
+        with open(path, "wb") as f:
+            for _ in range(SHARD_PROBE_BYTES // len(block)):
+                f.write(block)
+            f.flush()
+            os.fsync(f.fileno())
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(SHARD_RANKS) as pool:
+        list(pool.map(write, paths))
+    seconds = time.perf_counter() - t0
+    for path in paths:
+        path.unlink()
+    return SHARD_RANKS * SHARD_PROBE_BYTES / seconds / 1e9
+
+
+def shard_ckpt_depth():
+    """Four cards: dbrx's checkpointed depth (SHARD_CKPT_DEPTHS), with the
+    free bytes of build/, the probe's write rate and each depth's
+    checkpoint bytes and seconds at that rate."""
+    free = shutil.disk_usage(SHARD_CKPT_ROOT).free
+    rate = write_probe()
+    sizes = {L: ckpt_bytes(shard_cfg(SHARD_CKPT_ARCH, L))
+             for L in SHARD_CKPT_DEPTHS}
+    fits = [L for L in SHARD_CKPT_DEPTHS if sizes[L] <= free / 2
+            and sizes[L] / 1e9 / rate <= SHARD_CKPT_MAX_S]
+    return {"free_gb": free / 1e9, "probe_gb_per_s": rate,
+            "ckpt_gb": {L: b / 1e9 for L, b in sizes.items()},
+            "write_s_at_probe": {L: b / 1e9 / rate for L, b in sizes.items()},
+            "layers": fits[0] if fits else SHARD_CKPT_DEPTHS[-1],
+            "fits": bool(fits)}
+
+
 def topology() -> str:
     try:
         return subprocess.run(["nvidia-smi", "topo", "-m"],
@@ -5341,12 +5647,14 @@ def topology() -> str:
 
 
 def phase_shard():
-    """The shard phase (see SHARD_CELLS, SHARD_TRAIN_FULL and SHARD_MOE_*):
-    the tp = 1 runs (in this process: the serving ones in a one-rank group
-    on card 0, the train ones without a mesh) and the MoE layer's
-    emulation, then the SHARD_RANKS ranks, spawned once (the one-card
-    runs and, on four cards, the full ones). A rank that fails fails the
-    phase. Returns the phase's launches, summed over ranks."""
+    """The shard phase (see SHARD_CELLS, SHARD_TRAIN_FULL, SHARD_CKPT_*,
+    SHARD_PSUM_SEED and SHARD_MOE_*): the tp = 1 runs (in this process:
+    the serving ones in a one-rank group on card 0, the train ones without
+    a mesh) and the MoE layer's emulation, the ranks' `meta` counts, then
+    the SHARD_RANKS ranks, spawned once (the one-card runs and, on four
+    cards, the full ones, the checkpointed dbrx run and compressed_psum).
+    A rank that fails fails the phase. Returns the phase's launches,
+    summed over ranks."""
     t0 = time.perf_counter()
     gc.collect()            # the earlier phases' blocks, for the ranks
     torch.cuda.empty_cache()
@@ -5362,13 +5670,18 @@ def phase_shard():
                                                  SHARD_CELLS]),
                                       ("train", SHARD_TRAIN_FULL))
         for arch, layers in cells]
+    if SHARD_CKPT_ROOT.exists():
+        shutil.rmtree(SHARD_CKPT_ROOT)
+    SHARD_CKPT_ROOT.mkdir(parents=True)
+    depth = shard_ckpt_depth() if four else None
     emit({"phase": "shard_cards", "cards": names, "count": cards,
           "ranks": SHARD_RANKS, "backend": backend,
           "rank_devices": devices, "not_run_for_want_of_cards": not_run,
           "topology": topology(),
           "parent_reserved_gb": torch.cuda.memory_reserved() / 1e9,
           "free_gb": [torch.cuda.mem_get_info(i)[0] / 1e9
-                      for i in range(cards)]})
+                      for i in range(cards)],
+          "checkpoint_depth": depth})
     with tempfile.TemporaryDirectory(prefix="shard-") as ref_dir:
         # tp = 1: a one-rank group in this process, on card 0
         mesh = join_host_mesh(0, 1, ref_dir, backend=backend,
@@ -5390,18 +5703,31 @@ def phase_shard():
             runs += [("serve", a, full, "full") for a, full, _ in SHARD_CELLS]
             runs += [("train", a, full, "full") for a, full in
                      SHARD_TRAIN_FULL]
+            runs += [("train", SHARD_CKPT_ARCH, depth["layers"], "full_ckpt"),
+                     ("psum", SHARD_MOE_ARCH, None, "psum")]
+        t1 = time.perf_counter()
+        shard_counts(runs, ref_dir)
+        counts_s = time.perf_counter() - t1
         ranked = spawn_ranks(shard_rank, SHARD_RANKS, (runs, ref_dir),
                              backend=backend, devices=devices,
-                             timeout_s=SHARD_TIMEOUT_S * (3 if four else 1))
+                             timeout_s=SHARD_TIMEOUT_S * (4 if four else 1))
+    shutil.rmtree(SHARD_CKPT_ROOT)
     rows = ref + [r for rank_rows in ranked for r in rank_rows]
     bad = [f"{r['arch']} {r['mode']} rank {r['rank']}: {m}"
            for r in rows for m in r["mismatches"]]
-    cases, train, moe_rows = [], [], []
+    if four and not depth["fits"]:
+        bad.append(f"no checkpoint depth fits build/: {depth}")
+    cases, train, moe_rows, psum_rows = [], [], [], []
     for i, (kind, arch, layers, mode) in enumerate(runs):
         mine = [rank_rows[i] for rank_rows in ranked]
         lead = mine[0]
         if kind == "moe":
             moe_rows = mine
+            continue
+        if kind == "psum":
+            psum_rows = [{k: r[k] for k in ("rank", "shape", "equal",
+                                            "max_abs_err", "ms", "backend")}
+                         for r in mine]
             continue
         if kind == "train":
             train.append({
@@ -5424,6 +5750,7 @@ def phase_shard():
                 "leaves_unequal_tp1_per_rank": [
                     r["tp_agreement"]["leaves_unequal"]
                     if r["tp_agreement"] else None for r in mine],
+                "checkpoint_per_rank": [r["checkpoint"] for r in mine],
                 "rank0_stage_s": lead["stage_s"],
                 "ok": all(r["ok"] for r in mine)})
             continue
@@ -5457,7 +5784,7 @@ def phase_shard():
                 "flash_attention_bwd": 0, "mamba_scan_bwd": 0,
                 "threefry_normal": 0}
     for r in rows:
-        if r["mode"] == "moe":
+        if r["mode"] in ("moe", "psum"):
             continue
         if "launches_per_step" in r:            # a train run
             for k in ("flash_attention", "mamba_scan",
@@ -5474,8 +5801,10 @@ def phase_shard():
                                      "peak_ratio_card_over_meta", "sample")}
                   for r in ref if "generate_s" in r],
           "tp1_train": [{k: r[k] for k in ("arch", "layers", "losses",
-                                           "grad_norms", "step_ms_median")}
+                                           "grad_norms", "step_ms_median",
+                                           "checkpoint")}
                         for r in ref if "losses" in r],
+          "compressed_psum": psum_rows, "counts_s": counts_s,
           "launches": launched, "seconds": time.perf_counter() - t0,
           "nvidia_smi": nvidia_smi(), "ok": not bad, "mismatches": bad})
     if bad:

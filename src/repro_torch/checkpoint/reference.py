@@ -33,8 +33,10 @@ from repro_torch.tree import children, is_node, tree_map
 
 
 def load_reference_checkpoint(directory) -> Dict:
-    """One step directory -> nested dict of numpy arrays. Raises IOError
-    on a leaf whose bytes, shape or dtype disagree with the manifest."""
+    """One step directory -> nested dict of numpy arrays, a bf16 leaf
+    (manifest dtype "bfloat16") as the `|V2` words its `.npy` holds, as
+    the reference's reader gives it. Raises IOError on a leaf whose bytes,
+    shape or dtype disagree with the manifest."""
     d = pathlib.Path(directory)
     manifest = json.loads((d / "MANIFEST.json").read_text())
     tree: Dict = {}
@@ -42,8 +44,9 @@ def load_reference_checkpoint(directory) -> Dict:
         arr = np.load(d / meta["file"])
         if hashlib.sha1(arr.tobytes()).hexdigest() != meta["sha1"]:
             raise IOError(f"checksum mismatch: {name}")
+        dtype = "|V2" if meta["dtype"] == "bfloat16" else meta["dtype"]
         if list(arr.shape) != list(meta["shape"]) or \
-                str(arr.dtype) != meta["dtype"]:
+                arr.dtype != np.dtype(dtype):
             raise IOError(f"shape/dtype mismatch: {name}")
         node = tree
         *parents, leaf = name.split("/")

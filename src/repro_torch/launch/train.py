@@ -17,12 +17,23 @@ forward and remat recompute (`kernels.ops`).
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b --smoke \\
       --steps 50 --batch 8 --seq 256 --ckpt-dir /tmp/ckpt [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \\
-      --smoke --tp 4 [--device cpu]
+      --smoke --tp 4 --ckpt-dir /tmp/ckpt [--restore] [--device cpu]
 
 `--tp N` spawns N ranks (`launch.mesh.spawn_ranks`): NCCL over N cards,
 or with `--device cpu` N gloo ranks on the CPU, each with cores / N torch
-threads; rank 0 logs. Checkpoints across ranks are not written yet: a
-checkpoint directory with a mesh raises.
+threads; rank 0 logs.
+
+Checkpoints (`--ckpt-dir D`, every `--ckpt-every` steps, asynchronously,
+and at the end) hold `(params, opt_state)` and the pipeline's
+`data_step` in the reference's layout (`checkpoint.Checkpointer`), with
+or without a mesh: across ranks each rank writes its experts' runs of
+every expert leaf into the one file of that leaf, so the directory is the
+one a run without a mesh writes, and it restores (`--restore`) on any
+number of ranks that divides the experts, in the reference too. A
+restored run continues the run that wrote the checkpoint bit for bit.
+The reference checkpoints no error state of `--grad-compress`: a run
+restored with compression starts its error feedback at zero, in both
+packages.
 
 The initial weights are the reference's: `lm.init_params(prng_key(seed))`
 draws `jax.random`'s numbers on the device (through the threefry kernel
@@ -84,8 +95,9 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     `mesh`: a joined mesh (`launch.mesh.join_host_mesh`), this process one
     of its ranks, on the mesh's device unless `device` is given; it holds
     its E/tp experts of each MoE layer (drawn from the seed at their
-    offsets), and logs only on rank 0. Returns (params, the losses of the
-    steps this call ran)."""
+    offsets), writes and restores its part of each checkpoint in
+    `ckpt_dir`, and logs only on rank 0. Returns (params, the losses of
+    the steps this call ran)."""
     cfg = registry.get_config(arch)
     if smoke:
         cfg = registry.reduced(cfg)
@@ -93,9 +105,6 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
         if not act_sharding.joined(mesh):
             raise ValueError("train takes a joined mesh "
                              "(launch.mesh.join_host_mesh)")
-        if ckpt_dir:
-            raise ValueError("checkpoints across ranks are not written "
-                             "yet: train with a mesh takes no ckpt_dir")
         log_every = log_every if mesh.rank == 0 else 0
     dev = resolve_device(device or (mesh.device if mesh is not None
                                     else None), "train")
@@ -110,17 +119,19 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     pipe = SyntheticLMPipeline(vocab_size=cfg.vocab_size, seq_len=seq_len,
                                global_batch=global_batch, seed=seed,
                                n_logical_shards=global_batch)
-    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+    ckpt = Checkpointer(ckpt_dir, mesh=mesh) if ckpt_dir else None
     start_step = 0
+    lead = mesh is None or mesh.rank == 0
     if ckpt and restore:
         try:
-            state, start_step, extra = ckpt.restore([params, opt_state])
-            params, opt_state = (tree_map(lambda t: t.to(dev), state[k])
-                                 for k in ("0", "1"))
+            _, start_step, extra = ckpt.restore([params, opt_state],
+                                                into=True)
             pipe.state.step = int(extra.get("data_step", start_step))
-            print(f"restored checkpoint at step {start_step}")
+            if lead:
+                print(f"restored checkpoint at step {start_step}")
         except FileNotFoundError:
-            print("no checkpoint found; starting fresh")
+            if lead:
+                print("no checkpoint found; starting fresh")
     pipe.state.step = max(pipe.state.step, start_step)
     pipe.start_prefetch()
 
@@ -191,9 +202,6 @@ def main():
         if not cpu and torch.cuda.device_count() < args.tp:
             raise SystemExit(f"--tp {args.tp} takes {args.tp} cards; "
                              f"{torch.cuda.device_count()} found")
-        if args.ckpt_dir:
-            raise SystemExit("--tp takes no --ckpt-dir: checkpoints across "
-                             "ranks are not written yet")
         ranked = mesh_lib.spawn_ranks(
             _train_rank, args.tp, (args.arch, kw),
             backend="gloo" if cpu else "nccl",

@@ -1,5 +1,6 @@
 """The port's jax-free checkpoint reader against the reference's
 `Checkpointer`, on the trained step-18 JOB agent."""
+import hashlib
 import json
 import pathlib
 import shutil
@@ -71,3 +72,68 @@ def test_corrupted_checkpoint_raises(tmp_path, corrupt):
         np.save(d / "critic__head__w2.npy", arr)
     with pytest.raises(IOError, match="checksum"):
         load_reference_checkpoint(d)
+
+
+def _bf16_tree():
+    """A tree with a bf16 leaf (seeded words, one NaN's and one
+    subnormal's among them), an fp32 and an int32 leaf: the port's
+    tensors and the same bits as the reference's jax arrays."""
+    import jax.numpy as jnp
+    import ml_dtypes
+    words = np.random.default_rng(4).integers(
+        0, 1 << 16, (3, 7), dtype=np.uint16)
+    words[0, :2] = (0x7FC1, 0x0003)
+    w = np.random.default_rng(5).standard_normal((2, 5)).astype(np.float32)
+    port = {"a": {"w": torch.from_numpy(words.view(np.int16)).view(
+        torch.bfloat16), "f": torch.from_numpy(w)},
+        "step": torch.tensor(7, dtype=torch.int32)}
+    ref = {"a": {"w": jnp.asarray(words.view(ml_dtypes.bfloat16)),
+                 "f": jnp.asarray(w)}, "step": jnp.asarray(7, jnp.int32)}
+    return port, ref, words
+
+
+def test_bf16_leaf_is_written_as_the_reference_writes_it(tmp_path):
+    """A bf16 tensor saved by the port: the reference's file bytes (a
+    `<V2` header, the bf16 words) and its manifest entry (dtype
+    "bfloat16", the sha1 of the words)."""
+    port, ref, words = _bf16_tree()
+    from repro_torch.checkpoint import Checkpointer as TCheckpointer
+    TCheckpointer(tmp_path / "port").save(1, port, extra={"k": 1})
+    Checkpointer(tmp_path / "ref").save(1, ref, extra={"k": 1})
+    got, want = (tmp_path / d / "step_00000001" for d in ("port", "ref"))
+    names = sorted(p.name for p in want.iterdir())
+    assert names == sorted(p.name for p in got.iterdir())
+    for name in names:
+        if name != "MANIFEST.json":
+            assert (got / name).read_bytes() == (want / name).read_bytes()
+    arrays = json.loads((got / "MANIFEST.json").read_text())["arrays"]
+    assert arrays == json.loads((want / "MANIFEST.json").read_text())[
+        "arrays"]
+    assert arrays["a/w"]["dtype"] == "bfloat16"
+    assert arrays["a/w"]["sha1"] == hashlib.sha1(words.tobytes()).hexdigest()
+
+
+def test_reference_bf16_checkpoint_restores_bit_for_bit(tmp_path):
+    """A checkpoint the reference wrote with a bf16 leaf (its reader gives
+    it back as `|V2` words) restores in the port as bf16, bit for bit,
+    also into a live tree's tensors; the jax-free reader gives the same
+    `|V2` words as the reference's."""
+    port, ref, words = _bf16_tree()
+    from repro_torch.checkpoint import Checkpointer as TCheckpointer
+    Checkpointer(tmp_path).save(3, ref)
+    read = load_reference_checkpoint(tmp_path / "step_00000003")
+    jtree, _, _ = Checkpointer(tmp_path).restore(ref)
+    assert read["a"]["w"].dtype.str == jtree["a"]["w"].dtype.str == "|V2"
+    np.testing.assert_array_equal(read["a"]["w"].view(np.uint16), words)
+    tree, step, _ = TCheckpointer(tmp_path).restore(port)
+    assert step == 3 and tree["a"]["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        tree["a"]["w"].view(torch.int16).numpy().view(np.uint16), words)
+    live = {"a": {"w": torch.zeros((3, 7), dtype=torch.bfloat16),
+                  "f": torch.zeros(2, 5)},
+            "step": torch.tensor(0, dtype=torch.int32)}
+    into, _, _ = TCheckpointer(tmp_path).restore(live, into=True)
+    assert into is live and int(live["step"]) == 7
+    assert torch.equal(live["a"]["w"].view(torch.int16),
+                       port["a"]["w"].view(torch.int16))
+    assert torch.equal(live["a"]["f"], port["a"]["f"])

@@ -65,6 +65,7 @@ whole tree's (the whole leaf's scale from one all_reduce of the ranks'
 largest magnitudes).
 """
 import dataclasses
+import json
 import os
 import pathlib
 import subprocess
@@ -78,7 +79,8 @@ import jax  # noqa: E402
 
 from repro.configs import registry as jregistry  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
-from repro_torch.checkpoint import lm_params_from_numpy  # noqa: E402
+from repro_torch.checkpoint import (Checkpointer,  # noqa: E402
+                                    lm_params_from_numpy)
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
@@ -453,22 +455,48 @@ def test_count_train_counts_one_ranks_step():
 def test_train_with_one_rank_mesh_trains_as_without(tmp_path):
     """`launch.train.train` on a joined (1, 1) mesh: the rank holds every
     expert and its all_reduces are the identity, so its losses equal the
-    run's without a mesh; a checkpoint directory with a mesh and a
-    descriptor mesh are refused."""
+    run's without a mesh. Its checkpoint restores without a mesh to the
+    parameters it returned, and the run without a mesh's checkpoint,
+    restored and saved again on the mesh (the expert leaves written as the
+    ranks write them), gives the same files byte for byte, the manifests
+    equal but for their time. (The two runs' states are not: at bf16
+    compute the mesh's dispatch rounds the expert leaves' and the
+    embedding's gradients in another order on the CPU.) A descriptor mesh
+    is refused."""
     kw = dict(smoke=True, steps=2, global_batch=2, seq_len=16,
               log_every=0, device="cpu")
-    _, plain = ttrain.train("dbrx-132b", **kw)
+    plain_dir, mesh_dir = tmp_path / "plain", tmp_path / "mesh"
+    params, plain = ttrain.train("dbrx-132b", ckpt_dir=str(plain_dir), **kw)
+    like = [params, adamw_init(params)]
     mesh = join_host_mesh(0, 1, str(tmp_path), backend="gloo", device="cpu")
     try:
         act.all_reduces = 0
-        _, got = ttrain.train("dbrx-132b", mesh=mesh, **kw)
+        got_params, got = ttrain.train("dbrx-132b", mesh=mesh,
+                                       ckpt_dir=str(mesh_dir), **kw)
         assert got == plain
         assert act.all_reduces > 0
-        with pytest.raises(ValueError, match="checkpoints across ranks"):
-            ttrain.train("dbrx-132b", mesh=mesh, ckpt_dir=str(tmp_path),
-                         **kw)
+        state, step, _ = Checkpointer(plain_dir, mesh=mesh).restore(like)
+        assert step == 2
+        Checkpointer(tmp_path / "again", mesh=mesh).save(
+            step, state, extra={"data_step": 2})
     finally:
         leave(mesh)
+    restored, _, _ = Checkpointer(mesh_dir).restore(like)
+    for (path, a), (_, b) in zip(flatten(got_params),
+                                 flatten(restored["0"])):
+        assert torch.equal(a, b), path
+    step_dir = pathlib.Path("step_00000002")
+    files = sorted(p.name for p in (plain_dir / step_dir).iterdir())
+    assert files == sorted(p.name for p in
+                           (tmp_path / "again" / step_dir).iterdir())
+    assert sum(f.endswith("moe_wg.npy") for f in files) == 3
+    for f in files:
+        a = (plain_dir / step_dir / f).read_bytes()
+        b = (tmp_path / "again" / step_dir / f).read_bytes()
+        if f == "MANIFEST.json":
+            a, b = json.loads(a), json.loads(b)
+            a.pop("time"), b.pop("time")
+        assert a == b, f
     with pytest.raises(ValueError, match="joined"):
         ttrain.train("dbrx-132b", mesh=Mesh(("data", "model"), (1, 1)),
                      **kw)
