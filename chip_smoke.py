@@ -282,11 +282,13 @@ torch.profiler reading.
 Then the `train_lm` phase, the LM training path (`launch.train`'s
 train step: `lm.loss_fn` with remat, autograd, AdamW) on the card, each
 model built from prng_key(0) through the threefry kernel and freed
-before the next, each at its published width (TRAIN_LM_CELLS):
-qwen3-8b at 12 of its 36 layers (3.56 B parameters: fp32 params, grads
-and both moments take 57 GB), 4 steps on 4 x 1024 tokens;
-falcon-mamba-7b at 16 of its 64 layers, 3 steps on 2 x 512 tokens (the
-cells as they were when the backward ran the plain versions);
+before the next, each at its published width (TRAIN_LM_CELLS), cut in
+depth only where fp32 params, grads and both moments (16 B a parameter)
+and the step's transients, counted on `meta` by
+`launch.dryrun.count_train`, would not fit the card:
+qwen3-8b at 12 of its 36 layers (3.56 B parameters, 57 GB of state), 4
+steps on 4 x 1024 tokens; falcon-mamba-7b at 32 of its 64 layers (3.64
+B, 58.2 GB; 36 layers count 74.6 GB), 3 steps on 2 x 512 tokens;
 gemma2-27b at 4 of its 46 layers (two local-global superblocks, 55.1 GB
 of state) on 1 x 6144 tokens, where its 4096 window cuts keys, in
 2048-token CE chunks (TRAIN_LAYOUT); whisper-tiny whole on 8 x 448
@@ -294,13 +296,17 @@ tokens and the driver's frames (4 encoder layers over 1500 frames,
 cross-attention of 448 queries over them; its layer-0 check and its
 card-against-CPU run read seeded, row-distinct frames from
 `seeded_source` instead); minicpm3-4b whole (62 layers
-of MLA, 65.2 GB of state: no kernel launch) on 2 x 512; 3 steps each;
+of MLA, 65.2 GB of state: no kernel launch) and qwen1.5-4b whole (40
+layers of MHA, 20 heads of 128 with QKV bias, 63.2 GB of state) on 2 x
+512; 3 steps each;
 batches from `SyntheticLMPipeline(seed=0)`,
 lr 3e-4 on the driver's cosine. Each step must launch flash_attention
 (or mamba_scan) exactly twice a layer, the forward and the remat
 re-forward (an encoder layer's too), and its backward kernels exactly
 twice a layer (one backward call), and nothing else of the four; every
-loss must be finite.
+loss must be finite; the steps' peak is printed beside the step's
+`count_train` and, where that count is at least TRAIN_PEAK_GATE_GB, must
+lie within LAYOUT_PEAK_RATIO of it.
 Before the steps, layer 0's superblock (after the whole encoder at
 whisper, whose cross layer reads it), forward and backward, through
 the kernels' autograd Functions is held against the same superblock
@@ -312,19 +318,27 @@ plain backward on the call's inputs, output and cotangent); two planted
 faults (one element of the call's output, one of the gradient it
 returns) must take more than TRAIN_FAULT_SHARE times their limits; and
 the first TRAIN_CPU_LAYERS layers, copied, through the cell's schedule
-on the card and on the CPU, every step (gemma2-27b's first of 3:
-TRAIN_CPU_STEPS) (each step's loss within TRAIN_CPU_LOSS_RTOL, the
-first gradient norm within TRAIN_CPU_GNORM_RTOL). After the steps,
-qwen3-8b's cell is built again
-from its seed and runs the same steps on the same batches with the
+on the card and on the CPU, every step (gemma2-27b's first of 3,
+qwen1.5-4b's first 2: TRAIN_CPU_STEPS) (each step's loss within
+TRAIN_CPU_LOSS_RTOL, the first gradient norm within
+TRAIN_CPU_GNORM_RTOL; each side's seconds by part, with the CPU's
+intra-op threads). After the steps, the cells of TRAIN_PLAIN_HOLD
+(qwen3-8b, qwen1.5-4b) are built again
+from their seed and run the same steps on the same batches with the
 plain versions in place of the kernels, forward and backward: each
 loss within TRAIN_PLAIN_LOSS_RTOL of the kernels' run, and no kernel
 launched. The line gives ms a step (median after the first),
 tokens/s, peak GB, the last step under torch.profiler (device busy ms,
 idle share, top kernels), and the step's model FLOPs and their share of
-989 TFLOP/s. Then `launch.train.train` itself, at the reduced
-qwen1.5-4b: 6 steps with an asynchronous checkpoint, then a restore that
-runs 2 more, under a temporary directory in build/; its loss must fall.
+989 TFLOP/s. Then `launch.train.train` itself, twice: at the reduced
+qwen1.5-4b (DRIVER), 6 steps with an asynchronous checkpoint, then a
+restore that runs 2 more, under a temporary directory in build/, its
+loss must fall; and at qwen1.5-4b's published widths (DRIVER_FULL), 3
+steps on the 256 rows of 16 tokens its pipeline draws, no checkpoint:
+every loss finite, exactly 80 flash_attention and 80
+flash_attention_bwd launches each step, seconds a step and tokens/s,
+and the run's peak within LAYOUT_PEAK_RATIO of its step's
+`count_train`.
 
 Then the `layout` phase, the layout re-optimizer and its tooling
 (`launch.dryrun`, `launch.opanalysis`, `adapt/`, the policy-driven model
@@ -416,7 +430,8 @@ threefry_gumbel row the lm phase's sampled steps), the `nvidia-smi`
 line, and
 the result line `{"ok": true, "device": {...}}`; before them a
 `phase_seconds` line (each phase's seconds, also printed to stderr as it
-ends). Any failure raises and
+ends, the script's seconds from its start after the imports, and the
+card's name and power limit). Any failure raises and
 exits non-zero (the learn, qos, control, gen and ablate phases check
 every case first and name each mismatch); without CUDA the script exits
 non-zero before printing any result.
@@ -426,10 +441,12 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
 import json
+import multiprocessing
 import os
 import pathlib
 import re
@@ -472,6 +489,7 @@ from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import steps as steps_lib  # noqa: E402
+from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.launch.mesh import (Mesh, join_host_mesh,  # noqa: E402
                                      leave, make_production_mesh,
                                      spawn_ranks)
@@ -3394,23 +3412,26 @@ def phase_lm():
 # ---------------------------------------------------------- train_lm phase
 # (arch, layers kept of the published depth or None for all of them,
 # batch, sequence, steps): the published widths; the depth cut only where
-# fp32 params, grads and both AdamW moments (16 B a parameter) would not
-# fit one 80 GB card with the step's transients: qwen3-8b 12 of 36 layers
-# (3.56 B parameters, 57 GB) and falcon-mamba-7b 16 of 64 (2.0 B, 32 GB),
-# each cell's batch and steps kept as they were when a step's backward
-# ran the plain versions, so that its steps compare with those runs;
-# gemma2-27b 4 of 46 (two superblocks of a local and a global layer,
-# 3.445 B, 55.1 GB) on one row of 6144 tokens, over which the 4096 window
-# cuts keys; whisper-tiny whole (54 M) on 8 x 448 tokens, its decoder's
-# context, with the driver's frames (`launch.train.batch_on`: zeros, so
-# that the encoder reads its learned positions); minicpm3-4b whole (4.07
-# B, 65.2 GB; the step's peak counted on `meta` by
-# `launch.dryrun.count_step`: 69.3 GB) on 2 x 512
+# fp32 params, grads and both AdamW moments (16 B a parameter) with the
+# step's transients would not fit one 80 GB card, the step's peak counted
+# on `meta` by `launch.dryrun.count_train`: qwen3-8b 12 of 36 layers
+# (3.56 B parameters, 57 GB of state) and falcon-mamba-7b 32 of 64 (3.64
+# B, 58.2 GB; 66.78 GB counted, 36 layers 74.59), each cell's batch and
+# steps kept as they were when a step's backward ran the plain versions,
+# so that its steps compare with those runs; gemma2-27b 4 of 46 (two
+# superblocks of a local and a global layer, 3.445 B, 55.1 GB) on one row
+# of 6144 tokens, over which the 4096 window cuts keys; whisper-tiny whole
+# (54 M) on 8 x 448 tokens, its decoder's context, with the driver's
+# frames (`launch.train.batch_on`: zeros, so that the encoder reads its
+# learned positions); minicpm3-4b whole (4.07 B, 65.2 GB; 69.25 GB
+# counted) and qwen1.5-4b whole (3.95 B, 63.2 GB; 66.04 GB counted) on
+# 2 x 512
 TRAIN_LM_CELLS = (("qwen3-8b", 12, 4, 1024, 4),
-                  ("falcon-mamba-7b", 16, 2, 512, 3),
+                  ("falcon-mamba-7b", 32, 2, 512, 3),
                   ("gemma2-27b", 4, 1, 6144, 3),
                   ("whisper-tiny", None, 8, 448, 3),
-                  ("minicpm3-4b", None, 2, 512, 3))
+                  ("minicpm3-4b", None, 2, 512, 3),
+                  ("qwen1.5-4b", None, 2, 512, 3))
 TRAIN_LM_LR = 3e-4
 # a cell's layout: the sharding policy's knobs (`sharding.act`), which
 # keep the math. At gemma2-27b the default CE chunk (`lm.CE_CHUNK`, 65,536
@@ -3465,25 +3486,43 @@ TRAIN_CPU_LAYERS, TRAIN_CPU_TOKENS = 2, 64
 TRAIN_CPU_LOSS_RTOL, TRAIN_CPU_GNORM_RTOL = 1e-2, 5e-2
 # the CPU's share of the phase: its AdamW over the copy. gemma2-27b's 2
 # layers come with its tied 256,000 x 4608 embedding (2.31 B parameters
-# on the CPU, ~64 s a step on the card's host), so its comparison runs
+# on the CPU, ~45 s a step on the host of an NVIDIA H100 80GB HBM3, 700
+# W), so its comparison runs
 # the first of the cell's 3 steps (its loss and gradient norm), for the
 # script's time. That step runs at lr 0 (the schedule's one warmup step),
 # so no AdamW update of gemma2-27b is compared; qwen3-8b's cell holds
-# AdamW on the card to the CPU's over 4 steps
-TRAIN_CPU_STEPS = {"gemma2-27b": 1}
+# AdamW on the card to the CPU's over 4 steps. qwen1.5-4b's 2 layers come
+# with its untied 151,936 x 2560 embedding and head (0.94 B parameters):
+# the warmup step and the first AdamW step
+TRAIN_CPU_STEPS = {"gemma2-27b": 1, "qwen1.5-4b": 2}
 # the kernels against the plain versions over whole steps: the cells in
 # TRAIN_PLAIN_HOLD built again from the same seed (after the first run is
 # freed) run the same steps on the same batches with `ops.mha_flash` and
 # `ops.selective_scan_fused` by their plain versions, forward and
 # backward (autograd through `kernels.ref`): each step's loss within
 # TRAIN_PLAIN_LOSS_RTOL of the kernels' run
-TRAIN_PLAIN_HOLD = ("qwen3-8b",)
+TRAIN_PLAIN_HOLD = ("qwen3-8b", "qwen1.5-4b")
 TRAIN_PLAIN_LOSS_RTOL = 1e-2
-# the driver itself, `launch.train.train` at the reduced qwen1.5-4b: 6
-# steps with an asynchronous checkpoint at step 3 (a blocking one at 6),
-# then a restore that runs 2 more
+# a cell's peak (`max_memory_allocated` over its steps) against its step
+# counted on `meta` by `launch.dryrun.count_train`, within the layout and
+# shard phases' LAYOUT_PEAK_RATIO where the count is at least
+# TRAIN_PEAK_GATE_GB, the cells whose depth or batch memory sets. Below
+# it the allocator's fixed costs pass 1% of the count: whisper-tiny read
+# 4.67 GB against 4.55 counted (NVIDIA H100 80GB HBM3, 700 W)
+TRAIN_PEAK_GATE_GB = 32.0
+# the driver itself, `launch.train.train`, twice: at the reduced
+# qwen1.5-4b, 6 steps with an asynchronous checkpoint at step 3 (a
+# blocking one at 6), then a restore that runs 2 more (the Checkpointer's
+# round trip: a full-width one would write 63 GB twice and read it back)
 DRIVER = {"arch": "qwen1.5-4b", "steps": 6, "global_batch": 8,
           "seq_len": 64, "ckpt_every": 3}
+DRIVER_MORE = 2
+# and at qwen1.5-4b's published widths (40 layers, 3.95 B parameters), 3
+# steps without a checkpoint: its pipeline draws 256 rows of 16 tokens
+# whatever global_batch says (the reference's quirk, ROADMAP Queue C),
+# 66.04 GB counted on `meta`
+DRIVER_FULL = {"arch": "qwen1.5-4b", "smoke": False, "steps": 3,
+               "global_batch": 8, "seq_len": 16}
 DRIVER_MORE = 2
 
 
@@ -3722,35 +3761,104 @@ def layer0_checks(arch, params, cfg, batch):
             "superblock_limit": limit, "planted_fault_shares": faults}
 
 
+@contextlib.contextmanager
+def step_parts(parts):
+    """`launch.steps`' loss_and_grads and adamw_update, which its train
+    steps call, each timed to a synchronize into parts["fwd_bwd_s"] and
+    parts["adamw_s"] (a list each, a call a step) while open."""
+    saved = steps_lib.loss_and_grads, steps_lib.adamw_update
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            parts.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return run
+    steps_lib.loss_and_grads = timed(saved[0], "fwd_bwd_s")
+    steps_lib.adamw_update = timed(saved[1], "adamw_s")
+    try:
+        yield
+    finally:
+        steps_lib.loss_and_grads, steps_lib.adamw_update = saved
+
+
+# glibc's mallopt parameters and their defaults: M_TRIM_THRESHOLD 128 KiB,
+# M_MMAP_MAX 65,536 mappings
+MALLOC_TRIM, MALLOC_MMAP_MAX = -1, -4
+MALLOC_DEFAULTS = {MALLOC_TRIM: 128 * 1024, MALLOC_MMAP_MAX: 65536}
+
+
+@contextlib.contextmanager
+def cpu_heap():
+    """While open, glibc serves the CPU's large tensors from its heap and
+    keeps what they free there for the next: by default it maps each
+    allocation over 32 MB afresh and unmaps it when freed, so every
+    elementwise pass over a (151,936, 4096) fp32 temporary faults in and
+    zeroes its pages first. Arithmetic unchanged. On closing, the
+    defaults again, and the heap's free pages back to the system
+    (`malloc_trim`)."""
+    libc = ctypes.CDLL(None)
+    libc.mallopt(MALLOC_MMAP_MAX, 0)
+    libc.mallopt(MALLOC_TRIM, 2 ** 31 - 1)
+    try:
+        yield
+    finally:
+        for param, value in MALLOC_DEFAULTS.items():
+            libc.mallopt(param, value)
+        libc.malloc_trim(0)
+
+
+def copied(t, side):
+    """`t` copied to `side`; to the CPU into memory whose pages a
+    parallel zero fill touched first (a copy from the card into fresh
+    pages ran slower)."""
+    if side == "cuda":
+        return t.detach().clone()
+    return torch.zeros(t.shape, dtype=t.dtype).copy_(t.detach())
+
+
 def train_card_vs_cpu(params, cfg, batches, steps):
     """The first TRAIN_CPU_LAYERS layers of the card's weights, copied
     (AdamW steps in place), on the card and on the CPU: the steps of the
     cell's schedule (`steps` in all) on one row of TRAIN_CPU_TOKENS
     tokens (no loss mask) of each of the pipeline's numpy `batches`, with
     seeded frames or memory (`seeded_batch`): each step's loss and
-    gradient norm."""
+    gradient norm, and each side's seconds by part (the copy and AdamW's
+    zero state, each step's forward and backward and its AdamW update),
+    with the CPU's intra-op threads."""
     small = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
     sub = dict(params, stack=tree_map(lambda t: t[:small.n_superblocks],
                                       params["stack"]))
     t0 = time.perf_counter()
-    out = {}
+    out, parts = {}, {}
     for side in ("cuda", "cpu"):
-        p = tree_map(lambda t: t.detach().to(side, copy=True), sub)
-        opt = adamw_init(p, getattr(torch, cfg.opt_moment_dtype))
-        step_fn = train_step_fn(small, AdamWConfig(lr=TRAIN_LM_LR), steps)
-        losses, norms = [], []
-        for batch in batches:
-            row = seeded_batch(
-                {"tokens": batch["tokens"][:1, :TRAIN_CPU_TOKENS]}, small,
-                side)
-            p, opt, _, metrics = step_fn(p, opt, 0, row)
-            losses.append(float(metrics["loss"]))
-            norms.append(float(metrics["grad_norm"]))
+        part = parts[side] = {}
+        t1 = time.perf_counter()
+        with cpu_heap() if side == "cpu" else contextlib.nullcontext():
+            p = tree_map(lambda t: copied(t, side), sub)
+            opt = adamw_init(p, getattr(torch, cfg.opt_moment_dtype))
+            torch.cuda.synchronize()
+            part["copy_s"] = time.perf_counter() - t1
+            step_fn = train_step_fn(small, AdamWConfig(lr=TRAIN_LM_LR),
+                                    steps)
+            losses, norms = [], []
+            with step_parts(part):
+                for batch in batches:
+                    row = seeded_batch(
+                        {"tokens": batch["tokens"][:1, :TRAIN_CPU_TOKENS]},
+                        small, side)
+                    p, opt, _, metrics = step_fn(p, opt, 0, row)
+                    losses.append(float(metrics["loss"]))
+                    norms.append(float(metrics["grad_norm"]))
+            del p, opt, step_fn
+        part["seconds"] = time.perf_counter() - t1
         out[side] = (losses, norms)
-        del p, opt, step_fn
     torch.cuda.empty_cache()
     (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
     rel = [abs(c - q) / abs(q) for c, q in zip(lc, lp)]
+    named = flatten(sub)
     row = {"layers": TRAIN_CPU_LAYERS, "tokens": TRAIN_CPU_TOKENS,
            "steps": len(batches), "schedule_steps": steps, "lr": TRAIN_LM_LR,
            "loss": {"cuda": lc, "cpu": lp, "rel": rel,
@@ -3758,6 +3866,11 @@ def train_card_vs_cpu(params, cfg, batches, steps):
            "grad_norm": {"cuda": gc, "cpu": gp,
                          "rel": [abs(c - q) / q for c, q in zip(gc, gp)],
                          "rtol_first": TRAIN_CPU_GNORM_RTOL},
+           "parts": parts, "cpu_threads": torch.get_num_threads(),
+           "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+           "params": sum(t.numel() for _, t in named),
+           "params_embed_head": sum(t.numel() for path, t in named
+                                    if path in ("embed", "lm_head")),
            "seconds": time.perf_counter() - t0}
     row["ok"] = max(rel) <= TRAIN_CPU_LOSS_RTOL and \
         row["grad_norm"]["rel"][0] <= TRAIN_CPU_GNORM_RTOL
@@ -3792,6 +3905,46 @@ def cell_layout(arch):
     knobs = TRAIN_LAYOUT.get(arch)
     return act_sharding.policy(act_sharding.ActivationPolicy(**knobs)
                                if knobs else None)
+
+
+def train_counts(jobs):
+    """`launch.dryrun.count_train`'s peak GB of each (cfg, B, S, layout
+    knobs) job, on `meta`: run in a spawned process while the phase works
+    (`phase_train_lm`)."""
+    out = []
+    for cfg, B, S, knobs in jobs:
+        with act_sharding.policy(act_sharding.ActivationPolicy(**knobs)
+                                 if knobs else None):
+            out.append(dryrun.count_train(cfg, B, S).peak_live_bytes / 1e9)
+    return out
+
+
+def train_cfg(arch, layers):
+    """`arch`'s published config, cut to `layers` (None: whole)."""
+    published = registry.get_config(arch)
+    return published if layers is None else \
+        dataclasses.replace(published, n_layers=layers)
+
+
+def driver_full_rows():
+    """The (rows, tokens) of a DRIVER_FULL step: its pipeline's batch."""
+    cfg = registry.get_config(DRIVER_FULL["arch"])
+    pipe = SyntheticLMPipeline(
+        vocab_size=cfg.vocab_size, seq_len=DRIVER_FULL["seq_len"],
+        global_batch=DRIVER_FULL["global_batch"], seed=0,
+        n_logical_shards=DRIVER_FULL["global_batch"])
+    return tuple(pipe.batch_at(0)["tokens"].shape)
+
+
+def peak_against_count(count, peak):
+    """A train step's card peak (GB) against `count`, its step's
+    `count_train` (GB): gated within LAYOUT_PEAK_RATIO where the count is
+    at least TRAIN_PEAK_GATE_GB."""
+    ratio = peak / count
+    gated = count >= TRAIN_PEAK_GATE_GB
+    lo, hi = LAYOUT_PEAK_RATIO
+    return {"counted_gb": count, "ratio": ratio, "gated": gated,
+            "ok": not gated or lo <= ratio <= hi}
 
 
 def train_plain_hold(cfg, B, S, losses):
@@ -3892,13 +4045,13 @@ def step_flops(cfg, B, S):
     return model, model + 2 * mm + 2.5 * kernel + other
 
 
-def train_cell(arch, layers, B, S, steps, bad):
+def train_cell(arch, layers, B, S, steps, count, bad):
     """One model of the train_lm phase: layer-0 checks, card against CPU,
     then `steps` train steps with every count at 0 before each and read
-    after it. Returns the row and the launches."""
+    after it; its peak against `count()`, its step's `count_train` (GB).
+    Returns the row and the launches."""
     published = registry.get_config(arch)
-    cfg = published if layers is None else \
-        dataclasses.replace(published, n_layers=layers)
+    cfg = train_cfg(arch, layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3960,6 +4113,11 @@ def train_cell(arch, layers, B, S, steps, bad):
         bad.append(f"{arch}: a step launched {per_step}, want {want}")
     if not all(np.isfinite(losses)):
         bad.append(f"{arch}: a loss is not finite: {losses}")
+    t0 = time.perf_counter()
+    counted = peak_against_count(count(), peak)
+    walls["count_wait_s"] = time.perf_counter() - t0
+    if not counted["ok"]:
+        bad.append(f"{arch}: the peak against its count: {counted}")
     step_s = float(np.median(times[1:])) if len(times) > 1 else times[0]
     model_flops, remat_flops = step_flops(cfg, B, S)
     row = {"arch": arch, "layers": cfg.n_layers, "published_layers":
@@ -3978,6 +4136,7 @@ def train_cell(arch, layers, B, S, steps, bad):
            step_s * 1e3, "tokens_per_s": B * S / step_s,
            "peak_mem_gb": peak,
            "peak_mem_gb_previous": TRAIN_PEAK_GB_PREVIOUS.get(arch),
+           "peak_counted": counted,
            "launches_per_step": per_step,
            "want_launches_per_step": want,
            "model_tflop": model_flops / 1e12,
@@ -4087,6 +4246,75 @@ def train_driver(bad):
     return row, launched
 
 
+@contextlib.contextmanager
+def driver_steps(record):
+    """`launch.train.train`'s steps while open: each with every count at 0
+    before it (`zero_step_counts`) and read after it, timed to a
+    synchronize, its tokens' shape kept; a dict each in `record`."""
+    make = train_lib.make_train_step
+
+    def counted(*args, **kw):
+        step_fn = make(*args, **kw)
+
+        def step(params, opt, err, batch):
+            zero_step_counts()
+            t0 = time.perf_counter()
+            out = step_fn(params, opt, err, batch)
+            torch.cuda.synchronize()
+            record.append({"s": time.perf_counter() - t0,
+                           "tokens": list(batch["tokens"].shape),
+                           **counts_lm(), **bwd_counts()})
+            return out
+        return step
+    train_lib.make_train_step = counted
+    try:
+        yield
+    finally:
+        train_lib.make_train_step = make
+
+
+def train_driver_full(rows, count, bad):
+    """`launch.train.train` itself on the card at DRIVER_FULL's published
+    widths: each step's loss, launches and seconds, tokens/s, and the
+    run's peak against `count()`, the `count_train` (GB) of a step of
+    `rows` (its pipeline's rows and tokens), which every step must take."""
+    cfg = registry.get_config(DRIVER_FULL["arch"])
+    per_step = 2 * cfg.n_superblocks * len(cfg.block_pattern)
+    want = {"flash_attention": per_step, "mamba_scan": 0,
+            "flash_attention_bwd": per_step, "mamba_scan_bwd": 0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    record = []
+    t0 = time.perf_counter()
+    with driver_steps(record):
+        losses = train_lm(**DRIVER_FULL, log_every=0, device="cuda")[1]
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    B, S = rows
+    times = [r["s"] for r in record]
+    step_s = float(np.median(times[1:]))
+    launched = [{k: r[k] for k in want} for r in record]
+    row = {"arch": DRIVER_FULL["arch"], **DRIVER_FULL,
+           "layers": cfg.n_layers, "params": cfg.param_count(),
+           "rows": B, "seq": S, "losses": losses, "step_s": times,
+           "step_ms_median": step_s * 1e3, "tokens_per_s": B * S / step_s,
+           "launches_per_step": launched, "want_launches_per_step": want,
+           "peak_mem_gb": peak,
+           "peak_counted": peak_against_count(count(), peak),
+           "seconds": seconds}
+    row["ok"] = (len(losses) == DRIVER_FULL["steps"]
+                 and all(tuple(r["tokens"]) == rows for r in record)
+                 and all(np.isfinite(losses))
+                 and all(n == want for n in launched)
+                 and row["peak_counted"]["gated"]
+                 and row["peak_counted"]["ok"])
+    if not row["ok"]:
+        bad.append(f"train driver at full width: {row}")
+    return row, {k: sum(n[k] for n in launched) for k in want}
+
+
 def phase_train_lm():
     """The LM training path on the card: each TRAIN_LM_CELLS model at
     full width (cut depth), then the driver. Every check runs before any
@@ -4095,15 +4323,30 @@ def phase_train_lm():
     total = {**counts_lm(), **bwd_counts()}
     total = {k: 0 for k in total}
     t0 = time.perf_counter()
-    for cell in TRAIN_LM_CELLS:
-        row, launched = train_cell(*cell, bad)
-        rows.append(row)
-        total = {k: total[k] + launched[k] for k in total}
-    driver, launched = train_driver(bad)
-    for k, n in launched.items():
-        total[k] += n
+    full_rows = driver_full_rows()
+    jobs = [(train_cfg(arch, layers), B, S, TRAIN_LAYOUT.get(arch))
+            for arch, layers, B, S, _ in TRAIN_LM_CELLS]
+    jobs.append((registry.get_config(DRIVER_FULL["arch"]), *full_rows, None))
+    # the `meta` counts (~20 s of Python) run in a process of their own
+    # beside the first cell's CPU work
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        counted = pool.submit(train_counts, jobs)
+        for i, cell in enumerate(TRAIN_LM_CELLS):
+            row, launched = train_cell(
+                *cell, lambda i=i: counted.result()[i], bad)
+            rows.append(row)
+            total = {k: total[k] + launched[k] for k in total}
+        driver, launched = train_driver(bad)
+        for k, n in launched.items():
+            total[k] += n
+        driver_full, launched = train_driver_full(
+            full_rows, lambda: counted.result()[-1], bad)
+        for k, n in launched.items():
+            total[k] += n
     emit({"phase": "train_lm", "models": rows, "driver": driver,
-          "launches": total, "seconds": time.perf_counter() - t0,
+          "driver_full": driver_full, "launches": total,
+          "seconds": time.perf_counter() - t0,
           "nvidia_smi": nvidia_smi(), "ok": not bad, "mismatches": bad})
     if bad:
         raise AssertionError(f"train_lm phase: {bad}")
@@ -5896,10 +6139,11 @@ BWD_TILE = 32              # the dkv kernel's query tile, the scan's block
 # (PERF.md §6, rows 3b and 4b: attention on mma.sync with a first pass for
 # the logsumexp, the scan with a forward walk of its own; NVIDIA H100 80GB
 # HBM3, 700 W; not re-run), for each row to stand beside, and the train_lm
-# cells' peak GB then
+# cells' peak GB then at the depths they run now (falcon-mamba-7b's, at 16
+# of 64 layers then, 35.632 GB, does not compare with its 32)
 BWD_MS_PREVIOUS = {"qwen3-8b/train": 1.89125, "gemma2-27b/local": 18.25726,
                "falcon-mamba-7b/train": 1.44703, "falcon-mamba-7b": 3.01307}
-TRAIN_PEAK_GB_PREVIOUS = {"qwen3-8b": 59.557, "falcon-mamba-7b": 35.632}
+TRAIN_PEAK_GB_PREVIOUS = {"qwen3-8b": 59.557}
 
 
 def closeness(case, out, want, atol, rtol):
@@ -6666,6 +6910,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 as the reference
     torch.backends.cudnn.allow_tf32 = False
     seconds = {}
@@ -6683,7 +6928,8 @@ def main() -> int:
     if args.only:
         for phase in args.only:
             timed(phase, ALONE[phase])
-        emit({"phase_seconds": seconds})
+        emit({"phase_seconds": seconds, "script_s":
+              time.perf_counter() - start, "nvidia_smi": smi})
         return 0
     db, wl, meta = deployment()
     tree = load_reference_checkpoint(CKPT)
@@ -6716,7 +6962,8 @@ def main() -> int:
     layout_launches = timed("layout", phase_layout)
     layout_launches["threefry_normal"] = threefry.normal_launches
     shard_launches = timed("shard", phase_shard)
-    emit({"phase_seconds": seconds})
+    emit({"phase_seconds": seconds, "script_s": time.perf_counter() - start,
+          "nvidia_smi": smi})
     summary = [{
         "name": "tree_cnn_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tree_cnn_fused.cu",

@@ -49,7 +49,7 @@ import time
 import traceback
 
 from repro_torch.configs import registry
-from repro_torch.configs.base import SHAPES
+from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.launch import opanalysis
 from repro_torch.launch import roofline as rl
 from repro_torch.launch import steps as steps_mod
@@ -152,7 +152,8 @@ def count_serve(cfg, requests: int, prompt_len: int, gen: int, *,
 
 def count_train(cfg, batch: int, seq: int, *, mesh=None):
     """One train step of `steps.make_train_step(cfg, mesh=mesh)` on
-    (batch, seq) tokens from the rank's seeded build
+    (batch, seq) tokens (with the family's memory or frames,
+    `steps.batch_struct`) from the rank's seeded build
     (`lm.init_params(..., mesh=)`, fp32 as cfg keeps it) and its AdamW
     state, run on `meta` under an `OpCounter`. Returns the counter."""
     import torch
@@ -164,9 +165,10 @@ def count_train(cfg, batch: int, seq: int, *, mesh=None):
     with opanalysis.OpCounter() as counter:
         params = lm.init_params(None, cfg, device="meta", mesh=mesh)
         opt = adamw_init(params, getattr(torch, cfg.opt_moment_dtype))
-        tokens = torch.zeros((batch, seq), dtype=torch.int32, device="meta")
-        counter.track(tokens)
-        step(params, opt, {"tokens": tokens})
+        inputs = steps_mod.batch_struct(
+            cfg, ShapeConfig("train", seq, batch, "train"))
+        counter.track(inputs)
+        step(params, opt, inputs)
     return counter
 
 

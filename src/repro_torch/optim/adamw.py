@@ -20,8 +20,11 @@ their identity. The temporaries are bounded: a group holds at most CHUNK
 elements, a leaf larger than that cut in slices along its first axis (a
 stacked superblock leaf one or more superblocks at a time), so that a
 step needs a few hundred MB beyond the parameters, gradients and moments
-whatever the model's size; a small model's leaves make one group. Each
-element's arithmetic does not depend on the grouping.
+whatever the model's size; a small model's leaves make one group. On
+the CPU a group holds at most CPU_CHUNK elements, whose operands and
+temporaries the caches and the allocator keep: there each operation's
+pass over a 2^25-element group ran from memory into a fresh mapping.
+Each element's arithmetic does not depend on the grouping.
 
 Across ranks (`mesh`, joined: `launch.mesh.join_host_mesh`, one rank a
 card) a rank holds E/tp experts of each expert leaf
@@ -55,6 +58,7 @@ class AdamWConfig:
 
 
 CHUNK = 1 << 25         # elements of a leaf updated at once (128 MB in fp32)
+CPU_CHUNK = 1 << 20     # at most that many on the CPU (4 MB in fp32)
 
 
 def adamw_init(params, moment_dtype=torch.float32) -> Dict[str, Any]:
@@ -82,23 +86,29 @@ def global_norm(tree, mesh=None) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-def _slices(t):
-    """Views of `t` along its first axis, each of at most CHUNK elements
+def _chunk(device) -> int:
+    """The elements a group holds on `device` (module docstring)."""
+    return min(CHUNK, CPU_CHUNK) if device.type == "cpu" else CHUNK
+
+
+def _slices(t, chunk):
+    """Views of `t` along its first axis, each of at most `chunk` elements
     (at least one row); a scalar as one view of one element."""
     t = t.reshape(1) if t.dim() == 0 else t
-    rows = max(1, CHUNK // max(1, t[0].numel())) if len(t) else 1
+    rows = max(1, chunk // max(1, t[0].numel())) if len(t) else 1
     return [t[a:a + rows] for a in range(0, len(t), rows)]
 
 
 def _groups(*trees):
     """The leaves of the trees (params, grads, m, v), cut by `_slices`,
-    gathered into groups of consecutive slices of at most CHUNK elements
-    in all (a larger slice alone): lists of (p, g, m, v) views."""
+    gathered into groups of consecutive slices of at most `_chunk`
+    elements in all (a larger slice alone): lists of (p, g, m, v) views."""
     group, size = [], 0
     for leaf in zip(*map(leaves, trees)):
-        for piece in zip(*map(_slices, leaf)):
+        chunk = _chunk(leaf[0].device)
+        for piece in zip(*(_slices(t, chunk) for t in leaf)):
             n = piece[0].numel()
-            if group and size + n > CHUNK:
+            if group and size + n > chunk:
                 yield group
                 group, size = [], 0
             group.append(piece)

@@ -69,11 +69,11 @@ STEP_RTOL = 1e-2
 BF16_OWN, BF16_LEAF = 2 ** -7, 2 ** -6
 # the three-step parity: one arch a code path (dense attention with
 # qk-norm, the scan, enc-dec, vision cross-attention, MLA, MoE, sliding
-# window with softcaps and sandwich norms); the loss and gradients hold
-# all ten, bf16 moments are jamba's own test
+# window with softcaps and sandwich norms, dense MHA with QKV bias); the
+# loss and gradients hold all ten, bf16 moments are jamba's own test
 THREE_STEP_ARCHS = ("qwen3-8b", "falcon-mamba-7b", "whisper-tiny",
                     "llama-3.2-vision-90b", "minicpm3-4b", "dbrx-132b",
-                    "gemma2-27b")
+                    "gemma2-27b", "qwen1.5-4b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -259,8 +259,10 @@ def test_adamw_slices_keep_every_element(monkeypatch):
     sp, sq = adamw_init(p), adamw_init(q)
     adamw_update(p, g, sp, AdamWConfig())
     monkeypatch.setattr(adamw, "CHUNK", 8)
-    assert len(adamw._slices(q["stack"])) == 5
-    assert len(adamw._slices(q["b"])) == 2
+    chunk = adamw._chunk(q["stack"].device)
+    assert chunk == 8 and adamw._chunk(torch.device("meta")) == 8
+    assert len(adamw._slices(q["stack"], chunk)) == 5
+    assert len(adamw._slices(q["b"], chunk)) == 2
     adamw_update(q, g, sq, AdamWConfig())
     for (path, a), (_, b) in zip(flatten([p, sp]), flatten([q, sq])):
         assert torch.equal(a, b), path
